@@ -10,11 +10,16 @@ Phases, each printing one JSON line:
 1. env: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the time to build every CUDA kernel of the port (nvcc,
    from the sources in this checkout).
-2. kernel: K1 (fused delta + c_conv1) against its plain PyTorch version at
-   W' = 360 and 450, B = 32, within rtol/atol 1e-4 (fp32; only the order of
-   summation differs), timed with CUDA events beside its plain version, one
+2. kernel: K1 (fused delta + c_conv1, 3xTF32 on the tensor cores) against
+   its plain PyTorch version (fp32, TF32 off) within rtol/atol 1e-4 in every
+   form the serving path gives it: B = 32 at W' = 360 and 450, one query
+   expanded over 32 candidates (batch stride 0, as ``DescriptorDB.query``),
+   no bias, B = 1, and B = 256 (the head's batch). Each form is timed with
+   CUDA events; W' = 360 and 450 also time the plain version and one
    torch.matmul of the materialized contraction (the library yardstick,
-   never called by the port) and the card's bound.
+   never called by the port). Bounds: operations at the TF32 dense rate
+   (``bound_ms``), at three TF32 passes (``bound_3xtf32_ms``) and in fp32 on
+   the CUDA cores (``bound_fp32_simt_ms``), each against the bytes bound.
 3. model: the default 64x900x4 model (bf16 legs, W' = 360), seeded weights,
    served through ``Infer(device="cuda")``: infer_one, infer_multiple of one
    query against 64 references, query_best and infer_multiple_vs_multiple.
@@ -44,15 +49,16 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-B_KERNEL, C, S, F = 32, 128, 15, 64
+C, S, F = 128, 15, 64
 
-# Published peaks (NVIDIA data sheets, dense, at the full power limit):
-# fp32 outside the tensor cores, and device-memory bandwidth.
-PEAKS = {  # name fragment -> (fp32 FLOP/s, bytes/s)
-    "H100 PCIe": (51.2e12, 2.0e12),
-    "H100 NVL": (60.0e12, 3.9e12),
-    "H200": (67.0e12, 4.8e12),
-    "H100": (67.0e12, 3.35e12),  # SXM
+# Published peaks (NVIDIA data sheets, dense, at the full power limit): fp32
+# outside the tensor cores, TF32 on the tensor cores (None where none is on
+# record here), and device-memory bandwidth.
+PEAKS = {  # name fragment -> (fp32 FLOP/s, TF32 FLOP/s, bytes/s)
+    "H100 PCIe": (51.2e12, None, 2.0e12),
+    "H100 NVL": (60.0e12, None, 3.9e12),
+    "H200": (67.0e12, 495e12, 4.8e12),
+    "H100": (67.0e12, 495e12, 3.35e12),  # SXM
 }
 
 
@@ -60,9 +66,11 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def card_peaks(name: str) -> tuple[float, float]:
+def card_peaks(name: str) -> tuple[float, float, float]:
     for frag, peaks in PEAKS.items():
         if frag in name:
+            if None in peaks:
+                raise RuntimeError(f"no published TF32 peak on record for {name!r}")
             return peaks
     raise RuntimeError(f"no published peaks on record for {name!r}")
 
@@ -118,53 +126,79 @@ def phase_env(torch, build):
     return smi, name
 
 
+def volume(torch, rng, bsz: int, w: int):
+    """A (B, W', C) leg-feature-scale volume (ReLU outputs) on the card."""
+    return torch.from_numpy(np.maximum(rng.normal(size=(bsz, w, C)), 0).astype(np.float32)).cuda()
+
+
+# (form, B, W', right volume expanded from one query, bias, timed beside the
+# plain version and the library call)
+K1_FORMS = [
+    ("b32_w360", 32, 360, False, True, True),
+    ("b32_w450", 32, 450, False, True, True),
+    ("query_stride0_b32_w360", 32, 360, True, True, False),
+    ("no_bias_b32_w360", 32, 360, False, False, False),
+    ("b1_w360", 1, 360, False, True, False),
+    ("b256_w360", 256, 360, False, True, False),
+]
+
+
 def phase_kernel(torch, k1, plain, name, smi):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    peak_flops, peak_bw = card_peaks(name)
+    peak_fp32, peak_tf32, peak_bw = card_peaks(name)
     rows = {}
-    for w in (360, 450):
+    for form, bsz, w, query, with_bias, yardsticks in K1_FORMS:
         j = w // S
         rng = np.random.default_rng(w)
-        # leg-feature scale (ReLU outputs) and glorot-scale weights
-        a = torch.from_numpy(np.maximum(rng.normal(size=(B_KERNEL, w, C)), 0).astype(np.float32)).cuda()
-        b = torch.from_numpy(np.maximum(rng.normal(size=(B_KERNEL, w, C)), 0).astype(np.float32)).cuda()
+        a = volume(torch, rng, bsz, w)
+        b = volume(torch, rng, 1, w).expand(bsz, w, C) if query else volume(torch, rng, bsz, w)
+        # glorot-scale weights, as the head's init
         limit = math.sqrt(6.0 / (S * C + S * F))
         kern = torch.from_numpy(rng.uniform(-limit, limit, size=(S, C, F)).astype(np.float32)).cuda()
         bias = torch.from_numpy(rng.normal(size=(F,)).astype(np.float32) * 0.1).cuda()
+        bias = bias if with_bias else None
 
         out = k1.delta_conv1(a, b, kern, bias, stride=S)
         torch.cuda.synchronize()
         ref = plain.delta_conv1(a, b, kern, bias, stride=S)
         err = float((out - ref).abs().max())
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+        del out, ref
 
         kernel_ms = time_ms(torch, lambda: k1.delta_conv1(a, b, kern, bias, stride=S), 20)
-        plain_ms = time_ms(torch, lambda: plain.delta_conv1(a, b, kern, bias, stride=S), 5)
-        # library yardstick: the GEMM of the materialized abs-diff volume
-        lhs = (a.repeat(1, 1, S)[:, :, None, :]
-               - b[:, : j * S].reshape(B_KERNEL, 1, j, S * C)).abs_().reshape(-1, S * C)
-        wmat = kern.reshape(S * C, F)
-        library_ms = time_ms(torch, lambda: torch.matmul(lhs, wmat), 5)
-        lhs_gb = lhs.numel() * 4 / 1e9
-        del lhs
+        row = {"max_abs_err": err, "ms": kernel_ms}
+        if yardsticks:
+            row["plain_ms"] = time_ms(
+                torch, lambda: plain.delta_conv1(a, b, kern, bias, stride=S), 5)
+            # library yardstick: the GEMM of the materialized abs-diff volume
+            lhs = (a.repeat(1, 1, S)[:, :, None, :]
+                   - b[:, : j * S].reshape(bsz, 1, j, S * C)).abs_().reshape(-1, S * C)
+            wmat = kern.reshape(S * C, F)
+            row["library_ms"] = time_ms(torch, lambda: torch.matmul(lhs, wmat), 5)
+            row["library_lhs_gb"] = lhs.numel() * 4 / 1e9
+            del lhs
 
-        flops = 2 * B_KERNEL * w * j * S * C * F
-        nbytes = 4 * (2 * B_KERNEL * w * C + S * C * F + F + B_KERNEL * w * j * F)
-        t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
-        rows[w] = {
-            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        }
+        flops = 2 * bsz * w * j * S * C * F
+        b_volumes = 1 if query else bsz  # an expanded volume is read once
+        nbytes = 4 * ((bsz + b_volumes) * w * C + S * C * F + F * with_bias
+                      + bsz * w * j * F)
+        t_bytes = nbytes / peak_bw * 1e3
+        t_tf32 = flops / peak_tf32 * 1e3
+        row.update({
+            "bound_ms": max(t_tf32, t_bytes),
+            "bound_by": "operations" if t_tf32 >= t_bytes else "bytes",
+            "bound_3xtf32_ms": max(3 * t_tf32, t_bytes),
+            "bound_fp32_simt_ms": max(flops / peak_fp32 * 1e3, t_bytes),
+        })
+        rows[form] = row
         emit({
-            "phase": "kernel", "kernel": "delta_conv1", "w": w, "j": j, "batch": B_KERNEL,
-            "channels": C, "stride": S, "features": F, "max_abs_err": err,
-            "rtol": 1e-4, "atol": 1e-4, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "library_lhs_gb": lhs_gb, "bound_ms": rows[w]["bound_ms"],
-            "bound_by": rows[w]["bound_by"], "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-            "kernel_tflops": flops / kernel_ms / 1e9, "peak_fp32_tflops": peak_flops / 1e12,
-            "bound_share": rows[w]["bound_ms"] / kernel_ms, "card": smi,
+            "phase": "kernel", "kernel": "delta_conv1", "form": form, "w": w, "j": j,
+            "batch": bsz, "b_batch_stride": b.stride(0), "bias": with_bias,
+            "channels": C, "stride": S, "features": F, "rtol": 1e-4, "atol": 1e-4,
+            **row, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            "kernel_tflops": flops / kernel_ms / 1e9, "peak_tf32_tflops": peak_tf32 / 1e12,
+            "share_of_3xtf32_bound": row["bound_3xtf32_ms"] / kernel_ms, "card": smi,
         })
     return rows
 
@@ -311,8 +345,10 @@ def main() -> int:
     emit({"kernels": [{
         "name": k1.NAME, "route": "cuda", "source": k1.SOURCE,
         "replaces": tpu_kernel_site(k1.REPLACES), "launches": launches,
-        **{k: rows[360][k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{k: rows["b32_w360"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "bound_3xtf32_ms", "bound_fp32_simt_ms")},
+        "max_abs_err_all_forms": max(r["max_abs_err"] for r in rows.values()),
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """K1: fused DeltaLayer + c_conv1, a hand-written CUDA kernel for Hopper.
 
-``delta_conv1`` launches ``csrc/delta_conv1.cu`` for CUDA tensors and runs
-the plain PyTorch version (``ops.delta.delta_conv1``) for CPU tensors: the
-tensor's device decides, nothing else. On a CUDA tensor it launches the
-kernel or raises. ``delta_conv1.launches`` counts kernel launches, so a run
-can show that its main path went through the kernel.
+``delta_conv1`` launches ``csrc/delta_conv1.cu`` (3xTF32 on the tensor
+cores) for CUDA tensors and runs the plain PyTorch version
+(``ops.delta.delta_conv1``) for CPU tensors: the tensor's device decides,
+nothing else. On a CUDA tensor it launches the kernel or raises.
+``delta_conv1.launches`` counts calls of the kernel's C entry (each launches
+the weight split, then K1), so a run can show that its main path went
+through the kernel.
 """
 
 from __future__ import annotations
@@ -23,11 +25,12 @@ SOURCE = "overlapnet_torch/csrc/delta_conv1.cu"
 REPLACES = "ops/pallas_delta.py:54"
 FEATURES = 64  # F the kernel takes (c_conv1's width)
 CHANNEL_CHUNK = 32  # C must be a multiple of this
+INVALID_VALUE = 1  # cudaErrorInvalidValue: sizes the kernel does not take
 
 @functools.cache
 def _entry():
     fn = build.load(NAME).delta_conv1_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -87,7 +90,8 @@ def delta_conv1(
         raise ValueError(f"batch mismatch: a {tuple(a.shape)}, b {tuple(b.shape)}")
     _check_volume("a", a, (w, c))
     _check_volume("b", b, (w, c))
-    _check_aligned("kernel", kernel)
+    for name, x in (("a", a), ("b", b), ("kernel", kernel)):
+        _check_aligned(name, x)
     for name, x in (("b", b), ("kernel", kernel)):
         if x.device != a.device:
             raise ValueError(f"{name} is on {x.device}, a on {a.device}")
@@ -98,16 +102,23 @@ def delta_conv1(
         _check_aligned("bias", bias)
     j = w // s
     out = torch.empty((bsz, w, j, f), dtype=torch.float32, device=a.device)
+    # the weight transposed and split into tf32 hi / lo rows (2F, S*C)
+    wt = torch.empty((2 * f, s * c), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         err = _entry()(
             a.data_ptr(), b.data_ptr(), kernel.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            None if bias is None else bias.data_ptr(), wt.data_ptr(), out.data_ptr(),
             bsz, w, c, s, f,
             a.stride(0) if bsz > 1 else 0, b.stride(0) if bsz > 1 else 0,
             torch.cuda.current_stream().cuda_stream,
         )
+    if err == INVALID_VALUE:
+        raise ValueError(f"delta_conv1 kernel does not take a {tuple(a.shape)} volume")
     if err != 0:
-        raise RuntimeError(f"delta_conv1 CUDA launch failed: cudaError {err}")
+        raise RuntimeError(
+            f"delta_conv1 CUDA launch failed: "
+            f"{f'CUresult {-err}' if err < 0 else f'cudaError {err}'}"
+        )
     delta_conv1.launches += 1
     return out
 

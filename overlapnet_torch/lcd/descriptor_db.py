@@ -13,6 +13,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from overlapnet_torch.core.device import resolve_device
 from overlapnet_torch.ops.correlation import subbin_peak, yaw_confidence
 
 # Pairs per head call: bounds the c_conv1 output (B x 360 x 24 x 64 fp32,
@@ -28,7 +29,8 @@ class DescriptorDB:
         e.g. ``OverlapNet.score``.
       capacity: maximum number of stored embeddings.
       width, channels: embedding shape (reference: 360, 128).
-      device: where the store lives and the heads run.
+      device: where the store lives and the heads run ("cuda" by default;
+        raises if no card is visible).
     """
 
     def __init__(
@@ -37,11 +39,11 @@ class DescriptorDB:
         capacity: int = 8192,
         width: int = 360,
         channels: int = 128,
-        device="cpu",
+        device="cuda",
     ):
         self._head = head_apply
         self._capacity = capacity
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._fv = torch.zeros((0, width, channels), device=self.device)
         self._n = 0
 

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from overlapnet_torch.core.config import OverlapNetConfig
+from overlapnet_torch.core.device import resolve_device
 from overlapnet_torch.data.dataset import assemble_scan_image
 from overlapnet_torch.lcd.descriptor_db import DescriptorDB
 from overlapnet_torch.models import build_model, leg_output_width
@@ -26,18 +27,6 @@ from overlapnet_torch.weights import load_npz
 
 # Scans per leg call in create_feature_volumes.
 MAX_SCANS_PER_CALL = 64
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; raises for CUDA when no card is visible
-    (the port never moves a CUDA request to the CPU by itself)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "Infer was asked for a CUDA device and none is available; "
-            "pass device='cpu' to run on the CPU"
-        )
-    return device
 
 
 class PendingFrame:
@@ -75,9 +64,9 @@ class Infer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.output_size = leg_output_width(cfg.model)
-        self.model = build_model(cfg.model, cfg.num_input_channels)
+        self.model = build_model(cfg.model, cfg.num_input_channels, device=self.device)
         self.model.load_state_dict(params if params is not None else self._load_params())
-        self.model.to(self.device).eval()
+        self.model.eval()
         self._db = DescriptorDB(
             self.model.score, capacity=db_capacity, width=self.output_size,
             channels=self.model.legs.out_channels, device=self.device,

@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 
 from overlapnet_torch.core.config import ModelConfig
+from overlapnet_torch.core.device import resolve_device
 from overlapnet_torch.core.registry import HEADS, LEGS, MODELS
 from overlapnet_torch.models.heads import CorrelationHead, DeltaConv1OverlapHead
 from overlapnet_torch.models.legs import SiameseLegs
@@ -96,9 +97,11 @@ def reset_parameters(model: OverlapNet, seed: int = 0) -> OverlapNet:
 
 
 def build_model(
-    cfg: ModelConfig, num_channels: int, seed: int = 0, device="cpu"
+    cfg: ModelConfig, num_channels: int, seed: int = 0, device="cuda"
 ) -> OverlapNet:
-    """The model for ``cfg`` with seeded parameters, on ``device``."""
+    """The model for ``cfg`` with seeded parameters, on ``device`` ("cuda" by
+    default; raises if no card is visible)."""
+    device = resolve_device(device)
     model = MODELS.get(cfg.model_type)(cfg, num_channels)
     return reset_parameters(model, seed).to(device)
 
@@ -107,5 +110,5 @@ def init_params(
     cfg: ModelConfig, num_channels: int, seed: int = 0
 ) -> dict[str, torch.Tensor]:
     """A seeded parameter set (CPU ``state_dict``) for the full model."""
-    return build_model(cfg, num_channels, seed).state_dict()
+    return build_model(cfg, num_channels, seed, device="cpu").state_dict()
 

@@ -27,7 +27,7 @@ def _pair(cfg_kw, tmp_path, rng=0):
     jparams = jax_init_params(jcfg, 4, rng=rng)
     path = str(tmp_path / "params.npz")
     save_params_npz(path, jparams)
-    model = build_model(ModelConfig(input_width=360, **cfg_kw), 4)
+    model = build_model(ModelConfig(input_width=360, **cfg_kw), 4, device="cpu")
     model.load_state_dict(load_npz(path))
     return jax_build_model(jcfg), jparams, model.eval()
 
@@ -103,7 +103,7 @@ def test_overlapnet_matches_jax(cfg_kw, overlap_gate, tmp_path):
 
 
 def test_legs_reject_output_height_not_one():
-    model = build_model(ModelConfig(input_height=96, input_width=360), 4)
+    model = build_model(ModelConfig(input_height=96, input_width=360), 4, device="cpu")
     with pytest.raises(ValueError, match="height"):
         model.encode(torch.zeros(1, 96, 360, 4))
 
@@ -111,7 +111,7 @@ def test_legs_reject_output_height_not_one():
 def test_correlation_stop_gradient_detaches_the_yaw_head():
     cfg = dataclasses.replace(ModelConfig(input_width=360), correlation_stop_gradient=True,
                               leg_dtype="float32")
-    model = build_model(cfg, 4)
+    model = build_model(cfg, 4, device="cpu")
     x = torch.from_numpy(_images(6, n=1))
     overlap, logits = model(x, x)
     assert not logits.requires_grad  # 'none' mode: no parameter, no path back

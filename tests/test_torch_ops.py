@@ -60,6 +60,47 @@ def test_k1_plain_version_matches_pallas_kernel(w):
     np.testing.assert_allclose(out_b.numpy(), ref_b, rtol=1e-4, atol=1e-4)
 
 
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 as cvt.rna.tf32.f32 rounds (nearest, ties away from
+    zero): (bits + 0x1000) & 0xFFFFE000 on the int32 view."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.parametrize("w", [360, 450])
+def test_k1_3xtf32_scheme_matches_jax_fp32(w):
+    """K1's precision scheme, emulated in plain torch at full width (C=128,
+    S=15, F=64, B=1): the abs-diff and the weight split into TF32 hi and
+    lo = tf32(x - hi), then hi*hi + hi*lo + lo*hi as three fp32 matmuls, held
+    to the JAX package's fp32 delta_conv1 at the kernel's 1e-4 gate. A single
+    TF32 pass misses that gate. (The chip run holds the kernel itself.)"""
+    rng = np.random.default_rng(w)
+    c, s, f = 128, 15, 64
+    j = w // s
+    a = np.maximum(rng.normal(size=(1, w, c)), 0).astype(np.float32)
+    b = np.maximum(rng.normal(size=(1, w, c)), 0).astype(np.float32)
+    limit = np.sqrt(6.0 / (s * c + s * f))
+    kernel = rng.uniform(-limit, limit, size=(s, c, f)).astype(np.float32)
+    bias = rng.normal(size=(f,)).astype(np.float32) * 0.1
+    expected = np.asarray(jdelta.delta_conv1(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(kernel), jnp.asarray(bias), stride=s,
+    ))[0]
+
+    wmat = _t(kernel).reshape(s * c, f)
+    w_hi = _tf32_rna(wmat)
+    w_lo = _tf32_rna(wmat - w_hi)
+    b_r = _t(b[0, : j * s]).reshape(j, s * c)
+    out3 = torch.empty((w, j, f))
+    out1 = torch.empty((w, j, f))
+    for i0 in range(0, w, 45):
+        d = (_t(a[0, i0 : i0 + 45]).repeat(1, s)[:, None, :] - b_r).abs()
+        d_hi = _tf32_rna(d)
+        d_lo = _tf32_rna(d - d_hi)
+        out3[i0 : i0 + 45] = d_hi @ w_hi + d_hi @ w_lo + d_lo @ w_hi
+        out1[i0 : i0 + 45] = d_hi @ w_hi
+    np.testing.assert_allclose((out3 + _t(bias)).numpy(), expected, rtol=1e-4, atol=1e-4)
+    assert np.abs((out1 + _t(bias)).numpy() - expected).max() > 1e-4
+
+
 @pytest.mark.parametrize("negate", [False, True])
 def test_delta_volume_matches_jax(negate):
     rng = np.random.default_rng(1)

@@ -23,6 +23,7 @@ from overlapnet_tpu.train.checkpoint import save_params_npz
 from overlapnet_torch.core import config as tconfig
 from overlapnet_torch.lcd.descriptor_db import DescriptorDB
 from overlapnet_torch.lcd.infer import Infer
+from overlapnet_torch.models import build_model
 
 N_SCANS = 6
 
@@ -138,7 +139,7 @@ def test_descriptor_db_store(tmp_path, monkeypatch):
         logits = torch.einsum("bwc,bvc->bw", fa, fb)
         return fa.mean(dim=(1, 2))[:, None], logits
 
-    db = DescriptorDB(head, capacity=40, width=6, channels=2)
+    db = DescriptorDB(head, capacity=40, width=6, channels=2, device="cpu")
     rng = np.random.default_rng(0)
     fv = rng.normal(size=(20, 6, 2)).astype(np.float32)
     assert db.add(fv[0]) == 0 and db.add(fv[1:20]) == 1 and len(db) == 20
@@ -154,7 +155,7 @@ def test_descriptor_db_store(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="capacity"):
         db.add(np.zeros((21, 6, 2), np.float32))
     db.save(str(tmp_path / "db.npz"))
-    other = DescriptorDB(head, capacity=40, width=6, channels=2)
+    other = DescriptorDB(head, capacity=40, width=6, channels=2, device="cpu")
     assert other.restore(str(tmp_path / "db.npz")) == 20
     np.testing.assert_array_equal(other.feature_volumes, fv)
     with pytest.raises(ValueError, match="embedding shape"):
@@ -176,6 +177,20 @@ def test_infer_defaults_to_cuda_and_never_falls_back(tree):
     _, tcfg = _cfgs(tree)
     with pytest.raises(RuntimeError, match="CUDA"):
         Infer(tcfg)
+
+
+def test_constructors_default_to_cuda_and_never_fall_back():
+    """DescriptorDB() and build_model() with no device run on the card, and
+    raise where none is visible (decided here, when the test runs)."""
+    cfg = tconfig.ModelConfig(input_width=360)
+    if torch.cuda.is_available():
+        assert DescriptorDB(lambda fa, fb: None, width=6, channels=2).device.type == "cuda"
+        assert next(build_model(cfg, 4).parameters()).is_cuda
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DescriptorDB(lambda fa, fb: None, width=6, channels=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg, 4)
 
 
 def test_unported_weight_formats_raise(tree, tmp_path):

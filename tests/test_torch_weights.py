@@ -30,7 +30,8 @@ def test_npz_round_trip_is_bit_exact(tmp_path, normalize):
     sd = params_from_jax(flat)
     assert ("orientation_head.logit_scale" in sd) == (normalize == "cosine")
     # the state_dict fits the port's model exactly (strict load)
-    model = build_model(ModelConfig(input_width=360, correlation_normalize=normalize), 4)
+    model = build_model(ModelConfig(input_width=360, correlation_normalize=normalize), 4,
+                        device="cpu")
     model.load_state_dict(sd)
     assert sd.keys() == model.state_dict().keys()
     for name, t in model.state_dict().items():
