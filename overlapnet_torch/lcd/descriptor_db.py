@@ -1,9 +1,14 @@
 """Descriptor database: cached leg embeddings scored by the pairwise heads.
 
-The store is a float32 (rows, W', C) tensor on the serving device that grows
-by doubling up to ``capacity``. Scoring runs the heads on the device and
-brings back only per-pair results: overlap, sub-bin yaw peak and yaw
-confidence.
+``DescriptorDB`` keeps a float32 (rows, W', C) tensor on the serving device
+that grows by doubling up to ``capacity``. Scoring runs the heads on the
+device and brings back only per-pair results: overlap, sub-bin yaw peak and
+yaw confidence.
+
+``ShardedDescriptorDB`` is the online loop closer's store: allocated at
+capacity, rows interleaved over shards, candidates chosen by a global-row
+mask, the best k reduced on the device, and a fused frame step (embed +
+insert + masked top-1) that never waits for the device.
 """
 
 from __future__ import annotations
@@ -160,3 +165,289 @@ class DescriptorDB:
         fa = self._fv[self._rows(candidate_idxs)]
         q = self._tensor(query_fv)
         return self._score(fa, q[None].expand_as(fa))
+
+
+def _packed_topk(scores: torch.Tensor, gids: torch.Tensor, k: int) -> torch.Tensor:
+    """The best ``k`` columns of ``scores`` (3, n) = [overlap, yaw_peak,
+    yaw_confidence] as one (4, k) float32 tensor [overlap, row_id, yaw_peak,
+    yaw_confidence], best first. Ties go to the lower column (a stable sort),
+    and slots past n hold overlap -1, row 0, peak 0, confidence 0."""
+    n = scores.shape[1]
+    out = scores.new_zeros((4, k))
+    out[0] = -1.0
+    kk = min(k, n)
+    if kk:
+        order = torch.sort(scores[0], descending=True, stable=True).indices[:kk]
+        out[0, :kk] = scores[0, order]
+        out[1, :kk] = gids[order].float()
+        out[2:, :kk] = scores[1:, order]
+    return out
+
+
+class ShardedDescriptorDB:
+    """Descriptor DB with rows interleaved over ``shards``: global row ``i``
+    lives in shard ``i % D`` at slot ``i // D`` of one (D, slots, W', C)
+    float32 tensor, so the live prefix of the map is always balanced over the
+    shards. All shards live on the one device for now; a multi-device store
+    places shard d on rank d and keeps this layout and every result.
+
+    The store is allocated at capacity: growing it would move it under
+    frames that are still in flight.
+
+    Queries take a GLOBAL-row candidate mask, (capacity,) bool or
+    (Q, capacity) per query. Only live masked rows are scored: the mask is
+    host data, so the candidate rows and their count are known without asking
+    the device. The rows are gathered on the device, scored in chunks of
+    MAX_PAIRS_PER_CALL against the ``expand``ed query, and reduced to the
+    best k there; results are what scoring every live row and masking the
+    rest to -1 would give.
+
+    Args:
+      head_apply: (fa, fb) -> (overlap (B, 1), orientation logits (B, W')),
+        e.g. ``OverlapNet.score``.
+      capacity: maximum number of stored embeddings (rounded up to a
+        multiple of ``shards``).
+      width, channels: embedding shape (reference: 360, 128).
+      shards: number of row-interleaved shards D.
+      device: where the store lives and the heads run ("cuda" by default;
+        raises if no card is visible).
+    """
+
+    def __init__(
+        self,
+        head_apply: Callable,
+        capacity: int = 8192,
+        width: int = 360,
+        channels: int = 128,
+        shards: int = 1,
+        device="cuda",
+    ):
+        if shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        self._head = head_apply
+        self._n_dev = d = int(shards)
+        self._slots_cap = (capacity + d - 1) // d
+        if self.capacity >= 2**24:
+            # the frame step carries the row id in a float32
+            raise ValueError(f"capacity {self.capacity} must be below 2**24 rows")
+        self.device = resolve_device(device)
+        self._fv = torch.zeros((d, self._slots_cap, width, channels), device=self.device)
+        self._n = 0
+        self._leg_embed: Callable | None = None
+
+    def __len__(self) -> int:
+        return self._n
+
+    @property
+    def capacity(self) -> int:
+        return self._n_dev * self._slots_cap
+
+    def _slots_bucket(self, n: int) -> int:
+        """Smallest power-of-two slot count covering n rows (>= 1 per shard)."""
+        need = max(1, -(-n // self._n_dev))
+        b = 1
+        while b < need:
+            b *= 2
+        return min(b, self._slots_cap)
+
+    def _flat(self, rows: np.ndarray) -> np.ndarray:
+        """Global rows -> row indices of the store viewed as (D * slots, W', C)."""
+        return (rows % self._n_dev) * self._slots_cap + rows // self._n_dev
+
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        """Host array -> tensor on the DB's device, without waiting for the
+        device: on a card the bytes go through page-locked memory with a
+        non-blocking copy (the host allocator keeps that block until the
+        copy has run), on the CPU the array is wrapped."""
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def add(self, fv) -> int:
+        """Append one (W', C) or a batch (K, W', C) of embeddings; returns the
+        first new row."""
+        fv = torch.as_tensor(fv, dtype=torch.float32, device=self.device)
+        if fv.dim() == 2:
+            fv = fv[None]
+        k = fv.shape[0]
+        if self._n + k > self.capacity:
+            raise ValueError("ShardedDescriptorDB capacity exceeded")
+        if tuple(fv.shape[1:]) != tuple(self._fv.shape[2:]):
+            raise ValueError(
+                f"embedding shape {tuple(fv.shape[1:])} does not match the DB's "
+                f"(W', C) = {tuple(self._fv.shape[2:])} — was this cache built "
+                "with a different input_width/model?"
+            )
+        rows = torch.arange(self._n, self._n + k, device=self.device)
+        self._fv[rows % self._n_dev, rows // self._n_dev] = fv
+        first = self._n
+        self._n += k
+        return first
+
+    @property
+    def feature_volumes(self) -> np.ndarray:
+        """Live embeddings in global row order (copied to the host: O(n);
+        serving hot paths stay on the device via query_topk)."""
+        slots = -(-self._n // self._n_dev)
+        live = self._fv[:, :slots].transpose(0, 1).reshape(-1, *self._fv.shape[2:])
+        return live[: self._n].cpu().numpy()
+
+    def load(self, fv) -> int:
+        """Replace the whole store with ``fv`` (N, W', C); returns N."""
+        if len(fv) > self.capacity:
+            raise ValueError(
+                f"bulk load of {len(fv)} rows exceeds capacity {self.capacity}"
+            )
+        self._n = 0
+        if len(fv):
+            self.add(fv)
+        return self._n
+
+    def save(self, path: str) -> None:
+        """Persist the live embeddings in global row order to ``path`` (.npz),
+        the format both DBs of the JAX package write and read."""
+        np.savez_compressed(path, feature_volumes=self.feature_volumes)
+
+    def restore(self, path: str) -> int:
+        """Load embeddings saved by :meth:`save` (re-interleaved on insert)."""
+        with np.load(path) as data:
+            return self.load(data["feature_volumes"])
+
+    # -- queries -------------------------------------------------------------
+
+    def _candidate_rows(self, candidate_mask) -> np.ndarray:
+        """Live global rows a (capacity,)-or-shorter bool mask selects (all
+        live rows for None), in store order: shard-major, which is the order
+        in which equal overlaps are ranked."""
+        if candidate_mask is None:
+            rows = np.arange(self._n, dtype=np.int64)
+        else:
+            rows = np.flatnonzero(np.asarray(candidate_mask, bool)[: self._n])
+        return rows[np.argsort(self._flat(rows), kind="stable")]
+
+    def _score_rows(self, query: torch.Tensor, rows: np.ndarray):
+        """Score the (W', C) device ``query`` (right input) against stored
+        global ``rows`` (left input). Returns device tensors: scores (3, n) =
+        [overlap, yaw_peak, yaw_confidence] and the rows as int64. Nothing
+        here waits for the device."""
+        if len(rows) == 0:
+            return (self._fv.new_zeros((3, 0)),
+                    torch.zeros(0, dtype=torch.int64, device=self.device))
+        idx = self._upload(np.stack([self._flat(rows), rows]))
+        flat = self._fv.view(-1, *self._fv.shape[2:])
+        outs = []
+        for i in range(0, len(rows), MAX_PAIRS_PER_CALL):
+            fa = flat.index_select(0, idx[0, i : i + MAX_PAIRS_PER_CALL])
+            overlap, logits = self._head(fa, query[None].expand_as(fa))
+            outs.append(torch.stack(
+                [overlap.reshape(-1), subbin_peak(logits), yaw_confidence(logits)]
+            ))
+        return torch.cat(outs, dim=1), idx[1]
+
+    def _masks(self, candidate_mask, qn: int) -> list:
+        """One mask (or None) per query from a shared or per-query mask."""
+        if candidate_mask is None:
+            return [None] * qn
+        candidate_mask = np.asarray(candidate_mask, bool)
+        if candidate_mask.ndim == 1:
+            return [candidate_mask] * qn
+        if candidate_mask.shape[0] != qn:
+            raise ValueError(
+                f"{candidate_mask.shape[0]} candidate masks for {qn} queries"
+            )
+        return list(candidate_mask)
+
+    @torch.inference_mode()
+    def query_topk_batch(
+        self, queries, k: int = 8, candidate_mask=None,
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Global best-k rows for a (Q, W', C) stack of queries; one transfer
+        to the host for all of them. ``candidate_mask`` may be (capacity,)
+        shared or (Q, capacity) per-query, indexed by GLOBAL row id. Returns
+        (overlaps, row_ids, yaw_peaks, yaw_confidences), each (Q, k) with k
+        capped at the live slot bucket; slots holding no live masked row
+        come back with overlap -1."""
+        queries = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        if queries.dim() == 2:
+            queries = queries[None]
+        k = min(k, self._n_dev * self._slots_bucket(self._n))
+        packed = torch.stack([
+            _packed_topk(*self._score_rows(q, self._candidate_rows(m)), k)
+            for q, m in zip(queries, self._masks(candidate_mask, queries.shape[0]))
+        ]).cpu().numpy()  # (Q, 4, k)
+        return (packed[:, 0], packed[:, 1].astype(np.int32), packed[:, 2],
+                packed[:, 3])
+
+    def query_topk(
+        self, query_fv, k: int = 8, candidate_mask=None,
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Global best-k rows for one query, reduced on the device: only
+        (k,)-sized arrays cross to the host. Returns (overlaps, row_ids,
+        yaw_peaks, yaw_confidences); slots holding no live masked row come
+        back with overlap -1 (ignore them when fewer than k rows score)."""
+        query_fv = torch.as_tensor(query_fv, dtype=torch.float32, device=self.device)
+        vals, gid, yaw, conf = self.query_topk_batch(
+            query_fv[None], k=k, candidate_mask=candidate_mask
+        )
+        return vals[0], gid[0], yaw[0], conf[0]
+
+    @torch.inference_mode()
+    def query_all(
+        self, query_fv, candidate_mask=None
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Score the query against every live masked row. Returns host
+        (overlaps, yaw_peaks, yaw_confidences), each (capacity,), indexed by
+        global row; rows that were not scored hold overlap -1, peak 0 and
+        confidence 0."""
+        query_fv = torch.as_tensor(query_fv, dtype=torch.float32, device=self.device)
+        rows = self._candidate_rows(candidate_mask)
+        scores, _ = self._score_rows(query_fv, rows)
+        scores = scores.cpu().numpy()
+        overlap = np.full(self.capacity, -1.0, np.float32)
+        yaw = np.zeros(self.capacity, np.float32)
+        conf = np.zeros(self.capacity, np.float32)
+        overlap[rows], yaw[rows], conf[rows] = scores
+        return overlap, yaw, conf
+
+    # -- fused serving frame step ------------------------------------------
+
+    def set_embedder(self, leg_apply: Callable) -> None:
+        """Register the leg function, images (B, H, W, C) -> (B, W', C'),
+        that :meth:`frame_step` embeds with (e.g. ``OverlapNet.encode``)."""
+        self._leg_embed = leg_apply
+
+    @torch.inference_mode()
+    def frame_step(self, image: np.ndarray, candidate_mask) -> tuple[int, tuple]:
+        """Embed ``image``, append the embedding as the next row, and score
+        it against the live masked rows, as one run of device work with no
+        host synchronisation. Requires :meth:`set_embedder`.
+
+        Returns (row, (packed, event)). ``packed`` is a (4,) float32 host
+        tensor [overlap, row_id, yaw_peak, yaw_confidence] owned by this
+        frame; overlap is -1 when no live masked candidate exists. On a card
+        it is page-locked memory that a non-blocking copy fills: read it
+        only after ``event.synchronize()``. On the CPU the step has run by
+        the time it returns and ``event`` is None. The candidate mask indexes
+        GLOBAL rows and cannot select the new row.
+        """
+        if self._leg_embed is None:
+            raise RuntimeError("frame_step needs set_embedder() first")
+        row = self._n
+        if row >= self.capacity:
+            raise ValueError("ShardedDescriptorDB capacity exceeded")
+        rows = self._candidate_rows(candidate_mask)
+        fv = self._leg_embed(self._upload(np.asarray(image, np.float32))[None])[0]
+        self._fv[row % self._n_dev, row // self._n_dev] = fv
+        self._n += 1
+        if len(rows):
+            best = _packed_topk(*self._score_rows(fv, rows), 1)[:, 0]
+        else:  # nothing to score: the answer is known on the host
+            best = torch.tensor([-1.0, 0.0, 0.0, 0.0])
+        if best.device.type != "cuda":
+            return row, (best, None)
+        packed = torch.empty(4, dtype=torch.float32, pin_memory=True)
+        packed.copy_(best, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return row, (packed, event)

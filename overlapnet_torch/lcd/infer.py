@@ -4,9 +4,10 @@ API-parity re-design of the reference ``Infer`` class (reference
 src/two_heads/infer.py:22-265): leg/head factorization with an incremental
 embedding cache, the three entry points (``infer_one``, ``infer_multiple``,
 ``infer_multiple_vs_multiple``), ``create_feature_volumes``, ``query_best``
-and the synchronous ``dispatch_frame``. The embedding cache is a
-``DescriptorDB`` on the serving device. Weights load from the flat-key .npz
-export (``weights.py``).
+and ``dispatch_frame``. The embedding cache is a ``DescriptorDB`` on the
+serving device or, with ``shards``, a ``ShardedDescriptorDB`` whose fused
+frame step makes ``dispatch_frame`` non-blocking. Weights load from the
+flat-key .npz export (``weights.py``).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 from overlapnet_torch.core.config import OverlapNetConfig
 from overlapnet_torch.core.device import resolve_device
 from overlapnet_torch.data.dataset import assemble_scan_image
-from overlapnet_torch.lcd.descriptor_db import DescriptorDB
+from overlapnet_torch.lcd.descriptor_db import DescriptorDB, ShardedDescriptorDB
 from overlapnet_torch.models import build_model, leg_output_width
 from overlapnet_torch.ops.yaw import peak_to_degrees
 from overlapnet_torch.weights import load_npz
@@ -30,13 +31,40 @@ MAX_SCANS_PER_CALL = 64
 
 
 class PendingFrame:
-    """Result of :meth:`Infer.dispatch_frame`. Off a mesh the frame is
-    scored synchronously, so :attr:`result` is already resolved:
-    (match_frame_id, overlap, yaw_deg, confidence) or None."""
+    """Deferred result of :meth:`Infer.dispatch_frame`. A frame of the fused
+    step holds its own (4,) host tensor [overlap, row_id, yaw_peak,
+    yaw_confidence] and, on a card, the event recorded behind the copy that
+    fills it; :attr:`result` waits for that frame alone, on first access.
+    Reading it launches nothing, so any thread may."""
 
-    def __init__(self, frame_id: int, result):
+    def __init__(self, infer: "Infer", frame_id: int, n_candidates: int,
+                 packed: torch.Tensor | None = None, event=None, resolved=None):
+        self._infer = infer
         self.frame_id = frame_id
-        self.result = result
+        self._n_candidates = n_candidates
+        self._packed = packed
+        self._event = event
+        self._result = resolved
+        self._done = packed is None
+
+    @property
+    def result(self):
+        """(match_frame_id, overlap, yaw_deg, confidence), or None when the
+        frame had no candidates or nothing scored above -1."""
+        if not self._done:
+            if self._event is not None:
+                self._event.synchronize()
+            val, gid, yaw, conf = self._packed.tolist()
+            self._packed = self._event = None
+            self._done = True
+            if self._n_candidates and val > -1.0:
+                self._result = (
+                    self._infer._row_frames[int(gid)],
+                    val,
+                    float(self._infer._yaw_degrees(yaw)),
+                    conf,
+                )
+        return self._result
 
 
 class Infer:
@@ -52,6 +80,10 @@ class Infer:
       db_capacity: maximum number of cached embeddings.
       device: where the model and the embedding cache live ("cuda" by
         default; raises if no card is visible).
+      shards: None keeps the map in a ``DescriptorDB``; a number keeps it in
+        a ``ShardedDescriptorDB`` with that many row-interleaved shards (all
+        on ``device``), which reduces top-k on the device and makes
+        ``dispatch_frame`` the fused non-blocking frame step.
     """
 
     def __init__(
@@ -60,17 +92,24 @@ class Infer:
         params: Mapping[str, torch.Tensor] | None = None,
         db_capacity: int = 8192,
         device="cuda",
+        shards: int | None = None,
     ):
         self.cfg = cfg
+        self.shards = shards
         self.device = resolve_device(device)
         self.output_size = leg_output_width(cfg.model)
         self.model = build_model(cfg.model, cfg.num_input_channels, device=self.device)
         self.model.load_state_dict(params if params is not None else self._load_params())
         self.model.eval()
-        self._db = DescriptorDB(
-            self.model.score, capacity=db_capacity, width=self.output_size,
+        store = dict(
+            capacity=db_capacity, width=self.output_size,
             channels=self.model.legs.out_channels, device=self.device,
         )
+        if shards is None:
+            self._db = DescriptorDB(self.model.score, **store)
+        else:
+            self._db = ShardedDescriptorDB(self.model.score, shards=shards, **store)
+            self._db.set_embedder(self.model.encode)
         # frame-id -> db row; infer_multiple appends one embedding per call
         # so ids stay aligned like the reference's list (infer.py:184-185).
         self._frame_rows: dict[int, int] = {}
@@ -163,6 +202,12 @@ class Infer:
     def _rows_of(self, frame_ids: Sequence[int]) -> np.ndarray:
         return np.array([self._frame_rows[int(f)] for f in frame_ids], np.int64)
 
+    def _mask_of(self, rows: np.ndarray) -> np.ndarray:
+        """Global-row candidate mask of the sharded store."""
+        mask = np.zeros(self._db.capacity, bool)
+        mask[rows] = True
+        return mask
+
     def infer_multiple(
         self, current_frame_id: int, reference_frame_id: Sequence[int], fv=None
     ):
@@ -173,9 +218,24 @@ class Infer:
         fv = self._embed_and_add(current_frame_id, fv)
         if len(reference_frame_id) == 0:
             return None
-        overlaps, yaw_peaks, confs = self._db.query(
-            fv, self._rows_of(reference_frame_id)
-        )
+        ref_rows = self._rows_of(reference_frame_id)
+        if self.shards is None:
+            overlaps, yaw_peaks, confs = self._db.query(fv, ref_rows)
+        else:
+            # top-k with k >= #candidates: every masked candidate comes back
+            # and only O(k) values cross to the host. Fillers (overlap -1)
+            # are dropped; a reference id given twice gets its score at both
+            # positions.
+            vals, gids, yaw_k, conf_k = self._db.query_topk(
+                fv, k=len(ref_rows), candidate_mask=self._mask_of(ref_rows)
+            )
+            overlaps = np.full(len(ref_rows), -1.0, np.float32)
+            yaw_peaks = np.zeros(len(ref_rows), np.float32)
+            confs = np.zeros(len(ref_rows), np.float32)
+            for v, g, y, c in zip(vals, gids, yaw_k, conf_k):
+                if v > -1.0:
+                    at = ref_rows == g
+                    overlaps[at], yaw_peaks[at], confs[at] = v, y, c
         return overlaps, self._yaw_degrees(yaw_peaks), confs
 
     def query_best(
@@ -188,10 +248,17 @@ class Infer:
         if len(candidate_frame_ids) == 0:
             return None
         rows = self._rows_of(candidate_frame_ids)
-        overlaps, yaw_peaks, confs = self._db.query(fv, rows)
-        b = int(np.argmax(overlaps))
+        if self.shards is None:
+            overlaps, yaw_peaks, confs = self._db.query(fv, rows)
+            b = int(np.argmax(overlaps))
+            best_row = int(rows[b])
+        else:  # mask and argmax stay on the device: k = 1 values come back
+            overlaps, gids, yaw_peaks, confs = self._db.query_topk(
+                fv, k=1, candidate_mask=self._mask_of(rows)
+            )
+            b, best_row = 0, int(gids[0])
         return (
-            self._row_frames[int(rows[b])],
+            self._row_frames[best_row],
             float(overlaps[b]),
             float(self._yaw_degrees(yaw_peaks[b])),
             float(confs[b]),
@@ -201,15 +268,34 @@ class Infer:
         self, current_frame_id: int, candidate_frame_ids: Sequence[int],
         image: np.ndarray | None = None, fv=None,
     ) -> PendingFrame:
-        """One serving frame: embed, insert, score against the candidates
-        (:meth:`query_best`). ``image`` is used when given instead of the
-        frame's image on disk. The result comes back resolved."""
+        """Dispatch one serving frame: embed, insert, score against the
+        candidates. ``image`` is used when given instead of the frame's image
+        on disk.
+
+        On the sharded store this is the fused frame step
+        (``ShardedDescriptorDB.frame_step``) and does not wait for the
+        device: the returned :class:`PendingFrame` resolves on first access
+        to ``.result``. Candidate gating depends only on poses, not on
+        earlier results, so consecutive frames can be dispatched back to back
+        and resolved later (``lcd.online.OnlineLoopCloser.run``).
+
+        On the plain store, or with a precomputed ``fv``, it is the
+        synchronous :meth:`query_best` path and comes back resolved."""
+        n_cand = len(candidate_frame_ids)
+        if self.shards is not None and fv is None:
+            if image is None:
+                image = self._load_image(str(current_frame_id).zfill(6))
+            mask = self._mask_of(self._rows_of(candidate_frame_ids))
+            row, (packed, event) = self._db.frame_step(image, mask)
+            self._frame_rows[int(current_frame_id)] = row
+            self._row_frames[row] = int(current_frame_id)
+            return PendingFrame(self, current_frame_id, n_cand, packed, event)
         if fv is None and image is not None:
             with torch.inference_mode():
                 x = torch.as_tensor(image, dtype=torch.float32, device=self.device)
                 fv = self.model.encode(x[None])[0]
         result = self.query_best(current_frame_id, candidate_frame_ids, fv=fv)
-        return PendingFrame(current_frame_id, result)
+        return PendingFrame(self, current_frame_id, n_cand, resolved=result)
 
     # -- serving-session checkpoint ---------------------------------------
 

@@ -87,6 +87,16 @@ def test_heads_match_jax(cfg_kw, tmp_path):
     (dict(), 5e-3),  # default: bf16 legs
 ], ids=["fp32-valid", "fp32-circular", "bf16-valid"])
 def test_overlapnet_matches_jax(cfg_kw, overlap_gate, tmp_path):
+    """Item 1 is a rotated revisit with a clear correlation peak: its argmax
+    is exact for every leg dtype. Item 0 pairs two unrelated random images,
+    whose correlation curve is flat: its two highest bins lie within 0.1% of
+    the curve's range of each other, while bf16 legs on two backends
+    (XLA:CPU, oneDNN) move single bins by about 2% of that range, so which
+    bin wins is not something bf16 can decide. With bf16 legs item 0 is
+    therefore held to a near-tie: each engine's logit at the other's argmax
+    lies within NEAR_TIE (2%) of the curve's range below its own maximum.
+    fp32 legs keep the exact argmax for both items."""
+    NEAR_TIE = 0.02
     jm, jp, tm = _pair(cfg_kw, tmp_path)
     x1, x2 = _images(4), _images(5)
     x2[1] = np.roll(x1[1], 40, axis=1)  # a rotated revisit: a clear peak
@@ -96,7 +106,12 @@ def test_overlapnet_matches_jax(cfg_kw, overlap_gate, tmp_path):
     ov_j, lg_j, ov_t, lg_t = map(np.asarray, (ov_j, lg_j, ov_t, lg_t))
     assert np.all(np.isfinite(ov_t)) and np.all((ov_t >= 0) & (ov_t <= 1))
     assert np.abs(ov_t - ov_j).max() < overlap_gate
-    np.testing.assert_array_equal(lg_t.argmax(-1), lg_j.argmax(-1))
+    assert lg_t[1].argmax() == lg_j[1].argmax()
+    if cfg_kw.get("leg_dtype") == "float32":
+        np.testing.assert_array_equal(lg_t.argmax(-1), lg_j.argmax(-1))
+    else:
+        for own, other in ((lg_t[0], lg_j[0]), (lg_j[0], lg_t[0])):
+            assert own.max() - own[other.argmax()] <= NEAR_TIE * np.ptp(own)
     if cfg_kw.get("leg_dtype") == "float32":
         np.testing.assert_allclose(lg_t.mean(-1), lg_j.mean(-1), rtol=1e-3)
         np.testing.assert_allclose(lg_t.max(-1), lg_j.max(-1), rtol=1e-3)

@@ -82,6 +82,8 @@ names = [m.name for m in pkgutil.walk_packages(overlapnet_torch.__path__, "overl
 for n in names:
     importlib.import_module(n)
 assert len(names) >= 20, names
+for new in ("lcd.gating", "lcd.online", "geometry.kitti", "cli.lcd"):
+    assert "overlapnet_torch." + new in names, new
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "optax", "orbax") or m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "orbax", "overlapnet_tpu"))
