@@ -4,6 +4,7 @@ Commands (reference counterparts in parentheses):
 
   infer      overlap+yaw for one scan pair          (demo2_infer.py)
   lcd        online loop-closure detection          (demo3_lcd.py)
+  train      train from a network.yml               (training.py)
 
 The other commands of the JAX package's CLI come with later slices of the
 port.
@@ -24,6 +25,8 @@ def main(argv: list[str] | None = None) -> int:
         from overlapnet_torch.cli.infer_pair import main as run
     elif cmd == "lcd":
         from overlapnet_torch.cli.lcd import main as run
+    elif cmd == "train":
+        from overlapnet_torch.cli.train import main as run
     else:
         print(f"Unknown command: {cmd}\n{__doc__}")
         return 2

@@ -1,12 +1,24 @@
-"""K1: fused DeltaLayer + c_conv1, a hand-written CUDA kernel for Hopper.
+"""K1 and K2: fused DeltaLayer + c_conv1 and its backward, hand-written CUDA
+kernels for Hopper.
 
-``delta_conv1`` launches ``csrc/delta_conv1.cu`` (3xTF32 on the tensor
+``delta_conv1`` launches ``csrc/delta_conv1.cu`` (K1, 3xTF32 on the tensor
 cores) for CUDA tensors and runs the plain PyTorch version
 (``ops.delta.delta_conv1``) for CPU tensors: the tensor's device decides,
 nothing else. On a CUDA tensor it launches the kernel or raises.
-``delta_conv1.launches`` counts calls of the kernel's C entry (each launches
-the weight split, then K1), so a run can show that its main path went
-through the kernel.
+
+On the card the call goes through ``DeltaConv1Function``, a
+``torch.autograd.Function``: its forward launches K1 and saves only the two
+volumes and the weight; its backward launches ``csrc/delta_conv1_bwd.cu``
+(K2, fp32 on the CUDA cores), which recomputes sign(a - b) and gives the
+gradients of both volumes and of the weight. CPU tensors keep ordinary
+autograd through the plain forward; the Function itself also takes CPU
+tensors (plain forward, ``ops.delta.delta_conv1_backward``), which is how
+the tests reach its bookkeeping.
+
+``delta_conv1.launches`` counts calls of K1's C entry (each launches the
+weight split, then K1) and ``delta_conv1.backward_launches`` calls of K2's
+(each launches the product kernels asked for and their reductions), so a run
+can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -23,8 +35,14 @@ NAME = "delta_conv1"
 SOURCE = "overlapnet_torch/csrc/delta_conv1.cu"
 # The TPU kernel this one replaces, relative to the JAX package's root.
 REPLACES = "ops/pallas_delta.py:54"
-FEATURES = 64  # F the kernel takes (c_conv1's width)
-CHANNEL_CHUNK = 32  # C must be a multiple of this
+FEATURES = 64  # F the kernels take (c_conv1's width)
+CHANNEL_CHUNK = 32  # K1: C must be a multiple of this
+# K2
+BWD_NAME = "delta_conv1_bwd"
+BWD_SOURCE = "overlapnet_torch/csrc/delta_conv1_bwd.cu"
+BWD_REPLACES = "ops/pallas_delta.py:114"  # _core_bwd, the custom VJP of K1
+BWD_CHANNEL_CHUNK = 128  # K2: C must be a multiple of this
+BWD_MAX_J = 128  # K2: W' // S at most
 INVALID_VALUE = 1  # cudaErrorInvalidValue: sizes the kernel does not take
 
 @functools.cache
@@ -33,6 +51,14 @@ def _entry():
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _entry_bwd():
+    fn = build.load(BWD_NAME).delta_conv1_backward
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -51,31 +77,16 @@ def _check_aligned(name: str, x: torch.Tensor) -> None:
         raise ValueError(f"{name} must be 16-byte aligned for vector loads")
 
 
-def delta_conv1(
+def _launch_forward(
     a: torch.Tensor,
     b: torch.Tensor,
     kernel: torch.Tensor,
-    bias: torch.Tensor | None = None,
-    *,
-    stride: int = 15,
+    bias: torch.Tensor | None,
+    stride: int,
 ) -> torch.Tensor:
-    """Fused DeltaLayer + linear c_conv1.
-
-    Args:
-      a, b: (B, W', C) left/right leg feature volumes. Either may carry a
-        batch stride of 0 (an ``expand``ed single volume).
-      kernel: (1, S, C, F) HWIO conv kernel (or (S, C, F)).
-      bias: (F,) or None.
-
-    Returns: (B, W', W'//S, F) float32, the same function as
-    ``ops.delta.delta_conv1``.
-    """
-    if a.device.type == "cpu":
-        return plain.delta_conv1(a, b, kernel, bias, stride=stride)
+    """K1 on CUDA tensors: checks, allocates, launches; (B, W', J, F) fp32."""
     if a.device.type != "cuda":
         raise ValueError(f"delta_conv1 runs on CUDA or CPU tensors, not {a.device}")
-    if kernel.dim() == 4:
-        kernel = kernel[0]
     # fp32 in, as the TPU kernel casts (its inputs may come in bf16)
     a, b, kernel = a.float(), b.float(), kernel.float().contiguous()
     bsz, w, c = a.shape
@@ -123,4 +134,145 @@ def delta_conv1(
     return out
 
 
+def delta_conv1_backward(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    kernel: torch.Tensor,
+    g: torch.Tensor,
+    *,
+    stride: int = 15,
+    need_volumes: bool = True,
+    need_kernel: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor | None, torch.Tensor | None]:
+    """Gradients of ``delta_conv1`` for the cotangent ``g``: (da, db,
+    dkernel) in float32, each None unless asked for. K2 for CUDA tensors, its
+    plain version ``ops.delta.delta_conv1_backward`` for CPU tensors.
+
+    Args:
+      a, b: (B, W', C) volumes as K1 took them (a batch stride of 0 is
+        written out here); kernel: (S, C, F).
+      g: (B, W', W'//S, F), any float type and strides.
+      need_volumes / need_kernel: which of the two products to compute
+        (frozen legs need only dkernel).
+    """
+    if a.device.type == "cpu":
+        da, db, dw = plain.delta_conv1_backward(a, b, kernel, g, stride=stride)
+        return (da if need_volumes else None, db if need_volumes else None,
+                dw if need_kernel else None)
+    if a.device.type != "cuda":
+        raise ValueError(f"delta_conv1 backward runs on CUDA or CPU tensors, not {a.device}")
+    a, b, kernel = a.float().contiguous(), b.float().contiguous(), kernel.float().contiguous()
+    g = g.float().contiguous()
+    bsz, w, c = a.shape
+    s, _, f = kernel.shape
+    j = w // s
+    if f != FEATURES or c % BWD_CHANNEL_CHUNK or j > BWD_MAX_J or s != stride:
+        raise ValueError(
+            f"delta_conv1 backward kernel takes (C % {BWD_CHANNEL_CHUNK} == 0, "
+            f"F={FEATURES}, W' // S <= {BWD_MAX_J}); got kernel "
+            f"{tuple(kernel.shape)}, a {tuple(a.shape)}"
+        )
+    if tuple(g.shape) != (bsz, w, j, f) or tuple(b.shape) != tuple(a.shape):
+        raise ValueError(
+            f"shape mismatch: a {tuple(a.shape)}, b {tuple(b.shape)}, g {tuple(g.shape)}"
+        )
+    for name, x in (("a", a), ("b", b), ("kernel", kernel), ("g", g)):
+        if x.device != a.device or x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 on {a.device}")
+        _check_aligned(name, x)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=a.device)
+
+    da = db = da_part = dw = dw_part = None
+    if need_volumes:
+        da, db, da_part = empty(bsz, w, c), empty(bsz, w, c), empty(bsz, s, w, c)
+        if w > j * s:  # columns no tap reaches
+            db[:, j * s :] = 0
+    if need_kernel:
+        dw, dw_part = empty(s, c, f), empty(bsz, s, c, f)
+    if not (need_volumes or need_kernel):
+        return None, None, None
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    with torch.cuda.device(a.device):
+        err = _entry_bwd()(
+            a.data_ptr(), b.data_ptr(), kernel.data_ptr(), g.data_ptr(),
+            ptr(da), ptr(db), ptr(dw), ptr(da_part), ptr(dw_part),
+            bsz, w, c, s, f, torch.cuda.current_stream().cuda_stream,
+        )
+    if err == INVALID_VALUE:
+        raise ValueError(f"delta_conv1 backward kernel does not take a {tuple(a.shape)} volume")
+    if err != 0:
+        raise RuntimeError(f"delta_conv1 backward CUDA launch failed: cudaError {err}")
+    delta_conv1.backward_launches += 1
+    return da, db, dw
+
+
+class DeltaConv1Function(torch.autograd.Function):
+    """``delta_conv1`` with its gradient written out: forward K1, backward K2
+    (their plain versions for CPU tensors). Saves the two volumes and the
+    weight; nothing of size B*W'*W'*C is stored. ``kernel`` is (S, C, F)."""
+
+    @staticmethod
+    def forward(ctx, a, b, kernel, bias, stride):
+        a32, b32, k32 = a.float(), b.float(), kernel.float()
+        if a.device.type == "cpu":
+            out = plain.delta_conv1(a32, b32, k32, bias, stride=stride)
+        else:
+            out = _launch_forward(a32, b32, k32, bias, stride)
+        ctx.save_for_backward(a32, b32, k32)
+        ctx.stride = stride
+        ctx.dtypes = (a.dtype, b.dtype, kernel.dtype, None if bias is None else bias.dtype)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, b, kernel = ctx.saved_tensors
+        need_a, need_b, need_kernel, need_bias = ctx.needs_input_grad[:4]
+        da = db = dkernel = dbias = None
+        if need_a or need_b or need_kernel:
+            da, db, dkernel = delta_conv1_backward(
+                a, b, kernel, g, stride=ctx.stride,
+                need_volumes=need_a or need_b, need_kernel=need_kernel)
+        if need_bias:
+            # the bias is added outside the JAX package's custom VJP as well
+            dbias = g.float().sum(dim=(0, 1, 2)).to(ctx.dtypes[3])
+        return (
+            da.to(ctx.dtypes[0]) if need_a else None,
+            db.to(ctx.dtypes[1]) if need_b else None,
+            dkernel.to(ctx.dtypes[2]) if need_kernel else None,
+            dbias,
+            None,
+        )
+
+
+def delta_conv1(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    *,
+    stride: int = 15,
+) -> torch.Tensor:
+    """Fused DeltaLayer + linear c_conv1.
+
+    Args:
+      a, b: (B, W', C) left/right leg feature volumes. Either may carry a
+        batch stride of 0 (an ``expand``ed single volume).
+      kernel: (1, S, C, F) HWIO conv kernel (or (S, C, F)).
+      bias: (F,) or None.
+
+    Returns: (B, W', W'//S, F) float32, the same function as
+    ``ops.delta.delta_conv1``, differentiable in a, b, kernel and bias
+    (``DeltaConv1Function`` on the card, ordinary autograd on the CPU).
+    """
+    if a.device.type == "cpu":
+        return plain.delta_conv1(a, b, kernel, bias, stride=stride)
+    if kernel.dim() == 4:
+        kernel = kernel[0]
+    return DeltaConv1Function.apply(a, b, kernel, bias, stride)
+
+
 delta_conv1.launches = 0
+delta_conv1.backward_launches = 0

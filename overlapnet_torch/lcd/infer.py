@@ -7,7 +7,9 @@ embedding cache, the three entry points (``infer_one``, ``infer_multiple``,
 and ``dispatch_frame``. The embedding cache is a ``DescriptorDB`` on the
 serving device or, with ``shards``, a ``ShardedDescriptorDB`` whose fused
 frame step makes ``dispatch_frame`` non-blocking. Weights load from the
-flat-key .npz export (``weights.py``).
+flat-key .npz export (``weights.py``), a reference Keras HDF5 file
+(``train/import_keras.py``) or a checkpoint directory of this package's
+trainer (``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -75,8 +77,9 @@ class Infer:
         channel images from ``cfg.data.data_root_folder/cfg.data.infer_seqs``
         (same disk contract as the reference, infer.py:143-148).
       params: optional ``OverlapNet`` state_dict; otherwise loaded from
-        ``cfg.experiment.pretrained_weightsfilename`` (a flat-key .npz), or a
-        seeded fresh init when that names no file.
+        ``cfg.experiment.pretrained_weightsfilename`` (a flat-key .npz, a
+        Keras .weight/.h5/.hdf5 file or a checkpoint directory of this
+        package), or a seeded fresh init when that names no file.
       db_capacity: maximum number of cached embeddings.
       device: where the model and the embedding cache live ("cuda" by
         default; raises if no card is visible).
@@ -123,16 +126,19 @@ class Infer:
             if path.endswith(".npz") and os.path.exists(path):
                 return load_npz(path)
             if os.path.isfile(path) and path.endswith((".weight", ".h5", ".hdf5")):
-                raise NotImplementedError(
-                    f"{path}: Keras HDF5 weights load in the port's training "
-                    "slice (not yet ported); export them to a flat-key .npz "
-                    "with the JAX package first"
-                )
+                from overlapnet_torch.train.import_keras import import_keras_weights
+
+                return import_keras_weights(path, self.model.state_dict())
             if os.path.isdir(path):
+                from overlapnet_torch.train.checkpoint import latest_step, load_checkpoint
+
+                if latest_step(path) is not None:
+                    return load_checkpoint(path)["params"]
                 raise NotImplementedError(
-                    f"{path}: checkpoint directories load in the port's "
-                    "training slice (not yet ported); export the params to a "
-                    "flat-key .npz with the JAX package first"
+                    f"{path} holds no checkpoint of this package (step_<n>.pt). An "
+                    "orbax directory of the JAX package cannot be read here: export "
+                    "its params with that package's train.checkpoint.save_params_npz "
+                    "and name the .npz"
                 )
         print("Pre-trained weights was not found in:", path)
         return self.model.state_dict()  # the seeded init of build_model

@@ -45,9 +45,11 @@ class OverlapNet(nn.Module):
         """One leg: (B, H, W, C) range image -> (B, W', 128) feature volume."""
         return self.legs(x)
 
-    def score(self, fa: torch.Tensor, fb: torch.Tensor):
-        """Heads on cached feature volumes -> (overlap, orientation logits)."""
-        if self.cfg.correlation_stop_gradient:
+    def score(self, fa: torch.Tensor, fb: torch.Tensor, stop_gradient: bool | None = None):
+        """Heads on cached feature volumes -> (overlap, orientation logits).
+        ``stop_gradient`` overrides ``cfg.correlation_stop_gradient`` (the
+        trainer lifts it from ``correlation_release_epoch`` on)."""
+        if self.cfg.correlation_stop_gradient if stop_gradient is None else stop_gradient:
             # Train the legs through the overlap loss only; yaw comes from
             # correlating overlap-learned features.
             ga, gb = fa.detach(), fb.detach()
@@ -55,8 +57,8 @@ class OverlapNet(nn.Module):
             ga, gb = fa, fb
         return self.overlap_head(fa, fb), self.orientation_head(ga, gb)
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor):
-        return self.score(self.encode(x1), self.encode(x2))
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor, stop_gradient: bool | None = None):
+        return self.score(self.encode(x1), self.encode(x2), stop_gradient)
 
 
 MODELS.register("SiameseNetworkTemplate", OverlapNet)

@@ -10,6 +10,11 @@ The JAX package exports parameters as a flat-key .npz
   to NHWC before flattening so that the rows line up;
 - biases and ``orientation_head/logit_scale`` (cosine mode only) carry over
   as they are.
+
+The optimizer state crosses the same way (``opt_state_to_jax`` /
+``opt_state_from_jax``): Adagrad's ``sum_of_squares`` and Adam's ``mu`` and
+``nu`` have their parameter's layout and are keyed ``<slot>/params/...``;
+Adam's step count is the 0-d ``count``.
 """
 
 from __future__ import annotations
@@ -72,3 +77,37 @@ def load_npz(path: str) -> dict[str, torch.Tensor]:
     with np.load(path) as data:
         return params_from_jax({k: data[k] for k in data.files})
 
+
+OPT_SLOTS = ("sum_of_squares", "mu", "nu")
+
+
+def opt_state_to_jax(opt_state: Mapping) -> dict[str, np.ndarray]:
+    """The trainer's optimizer state -> flat numpy arrays keyed
+    ``<slot>/params/<path>`` in the JAX package's layouts (plus ``count`` for
+    Adam). Parameters the optimizer does not train (frozen legs) have no
+    entry, as in the JAX package's masked state."""
+    out = {}
+    for slot, value in opt_state.items():
+        if slot == "count":
+            out["count"] = np.asarray(value, np.int32)
+        elif slot in OPT_SLOTS:
+            out.update({f"{slot}/{k}": v for k, v in params_to_jax(value).items()})
+        else:
+            raise KeyError(f"unknown optimizer state entry {slot!r}")
+    return out
+
+
+def opt_state_from_jax(flat: Mapping[str, np.ndarray]) -> dict:
+    """Inverse of :func:`opt_state_to_jax` (CPU tensors)."""
+    slots: dict[str, dict[str, np.ndarray]] = {}
+    out: dict = {}
+    for key, arr in flat.items():
+        if key == "count":
+            out["count"] = int(arr)
+            continue
+        slot, _, rest = key.partition("/")
+        if slot not in OPT_SLOTS:
+            raise KeyError(f"not an optimizer state key: {key!r}")
+        slots.setdefault(slot, {})[rest] = arr
+    out.update({slot: params_from_jax(entries) for slot, entries in slots.items()})
+    return out

@@ -180,3 +180,149 @@ def test_yaw_decode_matches_jax(yaw_space, leg_padding):
     np.testing.assert_array_equal(
         tyaw.target_bins(bins, tcfg).numpy(), np.asarray(jyaw.target_bins(bins, jcfg))
     )
+
+
+# -- K2: the backward of K1 -------------------------------------------------------
+
+
+def _relu_volumes(seed, bsz, w, c, s, f):
+    """ReLU'd volumes (a quarter of all (i, j, c) differences are exact ties,
+    0 - 0), a weight and a cotangent."""
+    rng = np.random.default_rng(seed)
+    a = np.maximum(rng.normal(size=(bsz, w, c)), 0).astype(np.float32)
+    b = np.maximum(rng.normal(size=(bsz, w, c)), 0).astype(np.float32)
+    b[:, 3] = a[:, 5]  # a whole row equal to a left row as well
+    kernel = (rng.normal(size=(s, c, f)) * 0.1).astype(np.float32)
+    g = rng.normal(size=(bsz, w, w // s, f)).astype(np.float32)
+    assert (a[:, :, None, :] == b[:, None, :, :]).mean() > 0.2
+    return a, b, kernel, g
+
+
+@pytest.mark.parametrize("w,entry", [(90, "pallas"), (450, "pallas"), (100, "xla")])
+def test_k2_plain_version_matches_jax_grad(w, entry):
+    """ops.delta.delta_conv1_backward == jax.grad through delta_conv1_pallas
+    in interpret mode (as tests/test_ops.py runs it; rtol/atol 1e-3 as
+    there), on data with exact ties. The Pallas entry takes only W' that S
+    divides; w=100, which leaves columns no tap reaches, is held to jax.grad
+    through the JAX package's plain delta_conv1 on volumes without ties:
+    JAX differentiates abs at 0 as +1 where the Pallas entry's custom VJP
+    (and torch) take sign(0) = 0. (Behind ReLU legs the two conventions
+    give the same parameter gradients: a tie at 0 - 0 is a dead unit.)"""
+    import jax
+
+    a, b, kernel, g = _relu_volumes(11, 2, w, 32, 15, 16)
+    if entry == "xla":
+        rng = np.random.default_rng(17)
+        a, b = (rng.normal(size=a.shape).astype(np.float32) for _ in range(2))
+    fwd = delta_conv1_pallas if entry == "pallas" else jdelta.delta_conv1
+
+    def loss(a_, b_, k_):
+        return jnp.sum(fwd(a_, b_, k_, stride=15) * jnp.asarray(g))
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(a), jnp.asarray(b), jnp.asarray(kernel))
+    got = tdelta.delta_conv1_backward(_t(a), _t(b), _t(kernel), _t(g), stride=15)
+    for name, x, y in zip(("da", "db", "dkernel"), got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=1e-3, atol=1e-3, err_msg=name)
+    assert not got[1][:, (w // 15) * 15:].any()
+
+
+@pytest.mark.parametrize("w", [90, 100])
+def test_k2_plain_version_matches_fp64_autograd(w):
+    """In float64 the written-out gradients equal autograd through the plain
+    forward to 1e-10; sign(0) = 0 on both sides."""
+    a, b, kernel, g = _relu_volumes(12, 2, w, 32, 15, 16)
+    a, b, kernel = (_t(x).double().requires_grad_() for x in (a, b, kernel))
+    g = _t(g).double()
+    out = tdelta.delta_conv1(a, b, kernel, stride=15)
+    assert out.dtype == torch.float64
+    out.backward(g)
+    got = tdelta.delta_conv1_backward(a.detach(), b.detach(), kernel.detach(), g, stride=15)
+    for name, x, y in zip(("da", "db", "dkernel"), got, (a.grad, b.grad, kernel.grad)):
+        assert x.dtype == torch.float64
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-10, atol=1e-10, err_msg=name)
+    # a tie passes no gradient: with b == a everywhere, da and db vanish
+    same = a.detach()[:, :15].contiguous()
+    da, db, _ = tdelta.delta_conv1_backward(
+        same[:, :1].expand(2, 15, 32).contiguous(), same[:, :1].expand(2, 15, 32).contiguous(),
+        kernel.detach(), g[:, :15, :1], stride=15)
+    assert not da.any() and not db.any()
+
+
+def test_delta_conv1_function_gives_all_four_gradients_on_cpu():
+    """DeltaConv1Function on CPU tensors (plain forward, written-out
+    backward) == ordinary autograd through the plain forward, for a, b, the
+    kernel and the bias; bf16 volumes get bf16 gradients; no launch is
+    counted."""
+    a, b, kernel, g = _relu_volumes(13, 2, 100, 32, 15, 16)
+    bias = np.linspace(-1, 1, 16).astype(np.float32)
+
+    def grads(fn, dtype=torch.float32):
+        leaves = [_t(a).to(dtype).requires_grad_(), _t(b).to(dtype).requires_grad_(),
+                  _t(kernel).requires_grad_(), _t(bias).requires_grad_()]
+        fn(*leaves).backward(_t(g))
+        return [x.grad for x in leaves]
+
+    counts = (k1.delta_conv1.launches, k1.delta_conv1.backward_launches)
+    want = grads(lambda a_, b_, k_, bias_: tdelta.delta_conv1(a_, b_, k_, bias_, stride=15))
+    got = grads(lambda a_, b_, k_, bias_: k1.DeltaConv1Function.apply(a_, b_, k_, bias_, 15))
+    for name, x, y in zip(("da", "db", "dkernel", "dbias"), got, want):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-4, atol=1e-4, err_msg=name)
+    # the public wrapper on CPU tensors is ordinary autograd through the plain version
+    for x, y in zip(grads(lambda a_, b_, k_, bias_: k1.delta_conv1(a_, b_, k_[None], bias_, stride=15)), want):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+    low = grads(lambda a_, b_, k_, bias_: k1.DeltaConv1Function.apply(a_, b_, k_, bias_, 15),
+                dtype=torch.bfloat16)
+    assert low[0].dtype == low[1].dtype == torch.bfloat16 and low[2].dtype == torch.float32
+    assert (k1.delta_conv1.launches, k1.delta_conv1.backward_launches) == counts
+
+
+def test_delta_conv1_function_honours_needs_input_grad(monkeypatch):
+    """Frozen legs ask only for the kernel's gradient; a frozen head only for
+    the volumes'; nothing asked, nothing computed."""
+    a, b, kernel, g = _relu_volumes(14, 1, 30, 32, 15, 16)
+    asked = []
+    real = k1.delta_conv1_backward
+
+    def spy(*args, need_volumes=True, need_kernel=True, **kw):
+        asked.append((need_volumes, need_kernel))
+        return real(*args, need_volumes=need_volumes, need_kernel=need_kernel, **kw)
+
+    monkeypatch.setattr(k1, "delta_conv1_backward", spy)
+    for leg_grad, kernel_grad in ((False, True), (True, False), (True, True)):
+        ta, tb = _t(a).requires_grad_(leg_grad), _t(b)
+        tk = _t(kernel).requires_grad_(kernel_grad)
+        k1.DeltaConv1Function.apply(ta, tb, tk, None, 15).backward(_t(g))
+        assert asked[-1] == (leg_grad, kernel_grad)
+        assert (ta.grad is not None) == leg_grad and (tk.grad is not None) == kernel_grad
+        assert tb.grad is None
+    out = real(_t(a), _t(b), _t(kernel), _t(g), stride=15, need_volumes=False)
+    assert out[0] is None and out[1] is None and out[2] is not None
+    # only the bias asks: K2 is not called at all
+    n = len(asked)
+    bias = torch.zeros(16, requires_grad=True)
+    k1.DeltaConv1Function.apply(_t(a), _t(b), _t(kernel), bias, 15).backward(_t(g))
+    assert len(asked) == n
+    np.testing.assert_allclose(bias.grad.numpy(), g.sum((0, 1, 2)), rtol=1e-5, atol=1e-5)
+
+
+def test_delta_conv1_function_sums_the_gradient_of_an_expanded_volume():
+    """One query expanded over the batch (batch stride 0), with a gradient:
+    the Function returns a full (B, W', C) gradient and autograd's expand
+    sums it."""
+    a, b, kernel, g = _relu_volumes(15, 3, 30, 32, 15, 16)
+    q = _t(b[:1]).requires_grad_()
+    k1.DeltaConv1Function.apply(_t(a), q.expand(3, 30, 32), _t(kernel), None, 15).backward(_t(g))
+    _, db, _ = tdelta.delta_conv1_backward(
+        _t(a), _t(np.broadcast_to(b[:1], a.shape).copy()), _t(kernel), _t(g), stride=15)
+    np.testing.assert_allclose(q.grad.numpy(), db.sum(0, keepdim=True).numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_k2_wrapper_rejects_what_it_does_not_take():
+    a, b, kernel, g = _relu_volumes(16, 1, 30, 32, 15, 16)
+    with pytest.raises(ValueError, match="stride"):
+        tdelta.delta_conv1_backward(_t(a), _t(b), _t(kernel), _t(g), stride=5)
+    with pytest.raises(ValueError, match="g "):
+        tdelta.delta_conv1_backward(_t(a), _t(b), _t(kernel), _t(g[:, :, :1]), stride=15)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        k1.delta_conv1_backward(_t(a).to("meta"), _t(b), _t(kernel), _t(g), stride=15)

@@ -81,8 +81,11 @@ import overlapnet_torch
 names = [m.name for m in pkgutil.walk_packages(overlapnet_torch.__path__, "overlapnet_torch.")]
 for n in names:
     importlib.import_module(n)
-assert len(names) >= 20, names
-for new in ("lcd.gating", "lcd.online", "geometry.kitti", "cli.lcd"):
+assert len(names) >= 30, names
+for new in ("lcd.gating", "lcd.online", "geometry.kitti", "cli.lcd",
+            "train.losses", "train.schedule", "train.trainer", "train.evaluate",
+            "train.checkpoint", "train.import_keras", "core.metrics", "data.gt_files",
+            "data.dataset", "cli.train", "kernels.delta_conv1"):
     assert "overlapnet_torch." + new in names, new
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "optax", "orbax") or m.split(".")[0] in
