@@ -163,8 +163,12 @@ def _on_device(batch: Mapping, device: torch.device) -> dict[str, torch.Tensor]:
 
 def _loss(cfg: OverlapNetConfig, model: OverlapNet, x1, x2, overlap, orientation):
     output_size = leg_output_width(cfg.model)
-    overlap_pred, orient_logits = model(
-        x1, x2, stop_gradient=cfg.model.correlation_stop_gradient)
+    # one leg pass over both sides of the pairs: the legs share their
+    # weights, and half the launches is what the host-bound step gains from
+    n = x1.shape[0]
+    volumes = model.encode(torch.cat([x1, x2]))
+    overlap_pred, orient_logits = model.score(
+        volumes[:n], volumes[n:], cfg.model.correlation_stop_gradient)
     target_vec = orientation_target(target_bins(orientation, cfg.model), overlap, output_size)
     return combined_loss(
         overlap_pred,
