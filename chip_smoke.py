@@ -53,18 +53,21 @@ Phases, each printing one JSON line:
    stepped, the stepped frame's latency and a profiled window's device-busy
    share are printed as information.
 
-5. kernel_bwd (run after kernel): K2, the backward of K1 (two fp32 products
-   on the CUDA cores, sums in a fixed order), against its plain PyTorch
-   version ``ops.delta.delta_conv1_backward`` (fp32, TF32 off) on ReLU'd
-   volumes, a quarter of whose differences are exact ties (sign(0) = 0), at
-   B = 16 and 32 for W' = 360, B = 16 for W' = 450, and with only the
-   weight's gradient asked (frozen legs). Gate, per gradient (da, db, dW):
-   |kernel - plain| <= 1e-4 * (max|plain| + |plain|) elementwise, i.e.
-   rtol = atol = 1e-4 after dividing by the gradient's largest magnitude;
-   ``max_abs_err`` is the largest error over that magnitude. Timed with CUDA
-   events beside the plain version and the library yardstick (two
+5. kernel_bwd (run after kernel): K2, the backward of K1 (both products
+   3xTF32 wgmma on the tensor cores behind a pre-pass that splits the
+   cotangent, sums in a fixed order), against its plain PyTorch version
+   ``ops.delta.delta_conv1_backward`` (fp32, TF32 off) on ReLU'd volumes, a
+   quarter of whose differences are exact ties (sign(0) = 0), at B = 16 and
+   32 for W' = 360, B = 16 for W' = 450, with only the weight's gradient
+   asked (frozen legs), and untimed at B = 1 and B = 4. Gates, per gradient
+   (da, db, dW): |kernel - plain| <= 1e-4 * (max|plain| + |plain|)
+   elementwise, i.e. rtol = atol = 1e-4 after dividing by the gradient's
+   largest magnitude (``max_abs_err`` is the largest error over that
+   magnitude); and two calls on the same inputs give the same bits. Timed
+   with CUDA events beside the plain version and the library yardstick (two
    torch.matmul over the materialized operands, never called by the port);
-   bounds as for K1 (operations 4*B*W'*J*S*C*F).
+   bounds as for K1 (operations 4*B*W'*J*S*C*F), with the share of the
+   3xTF32 bound and of the fp32 CUDA-core bound.
 6. train: ``OverlapNetConfig()`` at full width (bf16 legs, W' = 360, batch
    16, Adagrad), seeded weights, a seeded set of scans and column-rolled
    revisits on disk, through ``ResidentPairs`` +
@@ -264,13 +267,17 @@ def phase_kernel(torch, k1, plain, name, smi):
     return rows
 
 
-# (form, B, W', only the weight's gradient asked (frozen legs), timed beside
-# the plain version and the library calls)
+# (form, B, W', only the weight's gradient asked (frozen legs), timed, timed
+# beside the plain version and the library calls)
 K2_FORMS = [
-    ("b16_w360", 16, 360, False, True),
-    ("b32_w360", 32, 360, False, True),
-    ("b16_w450", 16, 450, False, False),
-    ("frozen_legs_b16_w360", 16, 360, True, False),
+    ("b16_w360", 16, 360, False, True, True),
+    ("b32_w360", 32, 360, False, True, True),
+    ("b16_w450", 16, 450, False, True, False),
+    ("frozen_legs_b16_w360", 16, 360, True, True, False),
+    # a partial wave of blocks and short batch sums: one pair, and the train
+    # phase's parity batch
+    ("b1_w360", 1, 360, False, False, False),
+    ("b4_w360", 4, 360, False, False, False),
 ]
 K2_GATE = 1e-4
 
@@ -292,7 +299,7 @@ def phase_kernel_bwd(torch, k1, plain, name, smi):
     torch.backends.cudnn.allow_tf32 = False
     peak_fp32, peak_tf32, peak_bw = card_peaks(name)
     rows = {}
-    for form, bsz, w, frozen, yardsticks in K2_FORMS:
+    for form, bsz, w, frozen, timed, yardsticks in K2_FORMS:
         j = w // S
         rng = np.random.default_rng(1000 + w + bsz)
         a, b = volume(torch, rng, bsz, w), volume(torch, rng, bsz, w)
@@ -311,6 +318,13 @@ def phase_kernel_bwd(torch, k1, plain, name, smi):
         torch.cuda.synchronize()
         if k1.delta_conv1.backward_launches != before + 1:
             raise RuntimeError("K2's wrapper did not count its launch")
+        # every sum is taken in a fixed order: a second call gives the same bits
+        again = run()
+        torch.cuda.synchronize()
+        for what, out, out2 in zip(("da", "db", "dkernel"), got, again):
+            if out is not None and not torch.equal(out, out2):
+                raise RuntimeError(f"{form}: two calls gave different bits for {what}")
+        del again
         ref = plain.delta_conv1_backward(a, b, kern, g, stride=S)
         errs = {}
         for what, out, want in zip(("da", "db", "dkernel"), got, ref):
@@ -327,7 +341,7 @@ def phase_kernel_bwd(torch, k1, plain, name, smi):
                 raise RuntimeError(f"{form}: db is not zero past J*S")
         del got, ref
 
-        kernel_ms = time_ms(torch, run, 10)
+        kernel_ms = time_ms(torch, run, 10) if timed else None
         row = {"max_abs_err": max(errs.values()), "err_over_scale": errs, "ms": kernel_ms}
         if yardsticks:
             row["plain_ms"] = time_ms(
@@ -360,9 +374,14 @@ def phase_kernel_bwd(torch, k1, plain, name, smi):
             "phase": "kernel_bwd", "kernel": k1.BWD_NAME, "form": form, "w": w, "j": j,
             "batch": bsz, "only_dkernel": frozen, "exact_tie_share": ties,
             "gate": f"|d| <= {K2_GATE} * (max|ref| + |ref|) per gradient",
+            "two_calls_equal_bits": True,
             **row, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-            "kernel_tflops": flops / kernel_ms / 1e9, "peak_fp32_tflops": peak_fp32 / 1e12,
-            "share_of_fp32_simt_bound": row["bound_fp32_simt_ms"] / kernel_ms, "card": smi,
+            "peak_tf32_tflops": peak_tf32 / 1e12, "peak_fp32_tflops": peak_fp32 / 1e12,
+            **({"kernel_tflops": flops / kernel_ms / 1e9,
+                "share_of_3xtf32_bound": row["bound_3xtf32_ms"] / kernel_ms,
+                "share_of_fp32_simt_bound": row["bound_fp32_simt_ms"] / kernel_ms}
+               if timed else {}),
+            "card": smi,
         })
     return rows
 
@@ -1075,6 +1094,7 @@ def main(argv: list[str]) -> int:
         **{k: bwd["b16_w360"][k] for k in keys},
         "max_abs_err_is": "over each gradient's largest magnitude",
         "max_abs_err_all_forms": max(r["max_abs_err"] for r in bwd.values()),
+        "share_of_3xtf32_bound": bwd["b16_w360"]["bound_3xtf32_ms"] / bwd["b16_w360"]["ms"],
         "ms_b32_w360": bwd["b32_w360"]["ms"], "ms_only_dkernel_b16_w360":
         bwd["frozen_legs_b16_w360"]["ms"],
     }]})

@@ -9,15 +9,17 @@ nothing else. On a CUDA tensor it launches the kernel or raises.
 On the card the call goes through ``DeltaConv1Function``, a
 ``torch.autograd.Function``: its forward launches K1 and saves only the two
 volumes and the weight; its backward launches ``csrc/delta_conv1_bwd.cu``
-(K2, fp32 on the CUDA cores), which recomputes sign(a - b) and gives the
-gradients of both volumes and of the weight. CPU tensors keep ordinary
+(K2, both of its products 3xTF32 ``wgmma`` on the tensor cores, sums in a
+fixed order), which recomputes sign(a - b) and gives the gradients of both
+volumes and of the weight. CPU tensors keep ordinary
 autograd through the plain forward; the Function itself also takes CPU
 tensors (plain forward, ``ops.delta.delta_conv1_backward``), which is how
 the tests reach its bookkeeping.
 
 ``delta_conv1.launches`` counts calls of K1's C entry (each launches the
 weight split, then K1) and ``delta_conv1.backward_launches`` calls of K2's
-(each launches the product kernels asked for and their reductions), so a run
+(each launches the split of the cotangent, the product kernels asked for and
+their reductions), so a run
 can show that its main path went through the kernels.
 """
 
@@ -42,7 +44,7 @@ BWD_NAME = "delta_conv1_bwd"
 BWD_SOURCE = "overlapnet_torch/csrc/delta_conv1_bwd.cu"
 BWD_REPLACES = "ops/pallas_delta.py:114"  # _core_bwd, the custom VJP of K1
 BWD_CHANNEL_CHUNK = 128  # K2: C must be a multiple of this
-BWD_MAX_J = 128  # K2: W' // S at most
+BWD_MAX_J = 32  # K2: W' // S at most
 INVALID_VALUE = 1  # cudaErrorInvalidValue: sizes the kernel does not take
 
 @functools.cache
@@ -58,9 +60,22 @@ def _entry():
 @functools.cache
 def _entry_bwd():
     fn = build.load(BWD_NAME).delta_conv1_backward
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def backward_padded_rows(width: int, stride: int) -> int:
+    """Padded (i, j) rows per batch element in K2's split copies of the
+    cotangent (``padded_rows`` in the source): each left
+    row's J = W' // S entries padded to a multiple of 8, the left rows to a
+    multiple of both product kernels' steps. 0 where K2 does not take J."""
+    j = width // stride if stride > 0 else 0
+    if not 1 <= j <= BWD_MAX_J:
+        return 0
+    jb = (j + 7) // 8
+    step = 20 if jb == 3 else 16 // jb  # lcm(16 // jb rows a tile, 4 rows)
+    return -(-width // step) * step * 8 * jb
 
 
 def _check_volume(name: str, x: torch.Tensor, shape: tuple[int, int]) -> None:
@@ -166,7 +181,7 @@ def delta_conv1_backward(
     bsz, w, c = a.shape
     s, _, f = kernel.shape
     j = w // s
-    if f != FEATURES or c % BWD_CHANNEL_CHUNK or j > BWD_MAX_J or s != stride:
+    if f != FEATURES or c % BWD_CHANNEL_CHUNK or not 1 <= j <= BWD_MAX_J or s != stride:
         raise ValueError(
             f"delta_conv1 backward kernel takes (C % {BWD_CHANNEL_CHUNK} == 0, "
             f"F={FEATURES}, W' // S <= {BWD_MAX_J}); got kernel "
@@ -184,26 +199,34 @@ def delta_conv1_backward(
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=a.device)
 
-    da = db = da_part = dw = dw_part = None
+    if not (need_volumes or need_kernel):
+        return None, None, None
+    m_pad = backward_padded_rows(w, s)
+    da = db = da_part = dw = dw_part = g_split = gt_split = w_split = None
     if need_volumes:
         da, db, da_part = empty(bsz, w, c), empty(bsz, w, c), empty(bsz, s, w, c)
+        # the cotangent and the weight split into tf32 hi / lo (P1's operands)
+        g_split, w_split = empty(2, bsz, m_pad, f), empty(2, s * c, f)
         if w > j * s:  # columns no tap reaches
             db[:, j * s :] = 0
     if need_kernel:
         dw, dw_part = empty(s, c, f), empty(bsz, s, c, f)
-    if not (need_volumes or need_kernel):
-        return None, None, None
+        gt_split = empty(bsz, 2, f, m_pad)  # the same transposed (P2's operand)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     with torch.cuda.device(a.device):
         err = _entry_bwd()(
             a.data_ptr(), b.data_ptr(), kernel.data_ptr(), g.data_ptr(),
             ptr(da), ptr(db), ptr(dw), ptr(da_part), ptr(dw_part),
-            bsz, w, c, s, f, torch.cuda.current_stream().cuda_stream,
+            ptr(g_split), ptr(gt_split), ptr(w_split),
+            m_pad, bsz, w, c, s, f, torch.cuda.current_stream().cuda_stream,
         )
     if err == INVALID_VALUE:
         raise ValueError(f"delta_conv1 backward kernel does not take a {tuple(a.shape)} volume")
     if err != 0:
-        raise RuntimeError(f"delta_conv1 backward CUDA launch failed: cudaError {err}")
+        raise RuntimeError(
+            f"delta_conv1 backward CUDA launch failed: "
+            f"{f'CUresult {-err}' if err < 0 else f'cudaError {err}'}"
+        )
     delta_conv1.backward_launches += 1
     return da, db, dw
 

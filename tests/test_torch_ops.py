@@ -318,6 +318,89 @@ def test_delta_conv1_function_sums_the_gradient_of_an_expanded_volume():
     np.testing.assert_allclose(q.grad.numpy(), db.sum(0, keepdim=True).numpy(), rtol=1e-5, atol=1e-5)
 
 
+def _held_to_scale(got, want, gate=1e-4):
+    """K2's gate on the card: |got - want| <= gate * (max|want| + |want|)."""
+    want = np.asarray(want)
+    return bool(np.all(np.abs(got - want) <= gate * (np.abs(want).max() + np.abs(want))))
+
+
+@pytest.mark.parametrize("w", [360, 450])
+def test_k2_3xtf32_scheme_matches_jax_grad(w):
+    """K2's arithmetic, emulated in plain torch at full width (C=128, S=15,
+    F=64, B=1) on volumes with exact ties: the cotangent, the weight and
+    |diff| split into TF32 hi and lo = tf32(x - hi); P1 as g_hi W_hi +
+    g_hi W_lo + g_lo W_hi masked by sign(diff) (sign(0) = 0) and summed over j
+    and over i in fp32; P2 as the three partial products of |diff|^T and g over
+    four left rows at a time (the kernel's flush interval), the four-row sums
+    added in fp32 in order. Held to jax.grad through the Pallas entry in
+    interpret mode at the card's gate, 1e-4 of each gradient's largest
+    magnitude. A single TF32 pass misses that gate for every gradient. (The
+    chip run holds the kernel itself.)"""
+    import jax
+
+    c, s, f = 128, 15, 64
+    j = w // s
+    a, b, kernel, g = _relu_volumes(w, 1, w, c, s, f)
+
+    def loss(a_, b_, k_):
+        return jnp.sum(delta_conv1_pallas(a_, b_, k_, stride=s) * jnp.asarray(g))
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(a), jnp.asarray(b), jnp.asarray(kernel))
+    want = [np.asarray(x) for x in want]
+
+    def split(x):
+        hi = _tf32_rna(x)
+        return hi, _tf32_rna(x - hi)
+
+    wmat = _t(kernel).reshape(s * c, f)
+    w_hi, w_lo = split(wmat)
+    b_r = _t(b[0, : j * s]).reshape(j, s * c)
+    da3, da1 = torch.empty((w, c)), torch.empty((w, c))
+    db3, db1 = torch.zeros((j, s * c)), torch.zeros((j, s * c))
+    dw3, dw1 = torch.zeros((s * c, f)), torch.zeros((s * c, f))
+    rows = 4  # left rows between the kernel's fp32 flushes
+    for i0 in range(0, w, rows):
+        n = min(rows, w - i0)
+        g_hi, g_lo = split(_t(g[0, i0 : i0 + n]))  # (n, J, F)
+        diff = _t(a[0, i0 : i0 + n]).repeat(1, s)[:, None, :] - b_r  # (n, J, S*C)
+        sign = torch.sign(diff)
+        gw3 = (g_hi @ w_hi.T + g_hi @ w_lo.T + g_lo @ w_hi.T) * sign
+        gw1 = (g_hi @ w_hi.T) * sign
+        da3[i0 : i0 + n] = gw3.sum(1).reshape(n, s, c).sum(1)
+        da1[i0 : i0 + n] = gw1.sum(1).reshape(n, s, c).sum(1)
+        db3 -= gw3.sum(0)
+        db1 -= gw1.sum(0)
+        d_hi, d_lo = split(diff.abs().reshape(n * j, s * c))
+        g_hi, g_lo = g_hi.reshape(n * j, f), g_lo.reshape(n * j, f)
+        dw3 += d_hi.T @ g_hi + d_hi.T @ g_lo + d_lo.T @ g_hi
+        dw1 += d_hi.T @ g_hi
+    pad = np.zeros((w - j * s, c), np.float32)
+    got3 = (da3.numpy(), np.concatenate([db3.reshape(j * s, c).numpy(), pad]), dw3.reshape(s, c, f).numpy())
+    got1 = (da1.numpy(), np.concatenate([db1.reshape(j * s, c).numpy(), pad]), dw1.reshape(s, c, f).numpy())
+    for name, x3, x1, y in zip(("da", "db", "dkernel"), got3, got1, want):
+        y = y[0] if name != "dkernel" else y
+        assert _held_to_scale(x3, y), name
+        assert not _held_to_scale(x1, y), f"one TF32 pass holds the gate for {name}"
+
+
+@pytest.mark.parametrize("w,s,rows", [
+    (360, 15, 360 * 24),   # J = 24: already whole groups of 8, 360 = 18 * 20
+    (450, 15, 452 * 32),   # J = 30 -> 32, 450 -> 452 left rows
+    (100, 15, 112 * 8),    # J = 6 -> 8, tiles of 16 left rows
+    (90, 5, 100 * 24),     # J = 18 -> 24, 90 -> 100 left rows (steps of 20)
+    (495, 15, 0),          # J = 33: more than K2 takes
+    (10, 15, 0),           # W' < S
+])
+def test_k2_padded_rows(w, s, rows):
+    """The padded row count the wrapper sizes K2's scratch by: J to a
+    multiple of 8, the left rows to lcm(16 // (Jp / 8), 4); 0 where K2 does
+    not take the shape."""
+    assert k1.backward_padded_rows(w, s) == rows
+    if rows:
+        assert rows % 32 == 0 and rows >= w * (w // s)
+
+
 def test_k2_wrapper_rejects_what_it_does_not_take():
     a, b, kernel, g = _relu_volumes(16, 1, 30, 32, 15, 16)
     with pytest.raises(ValueError, match="stride"):
@@ -326,3 +409,8 @@ def test_k2_wrapper_rejects_what_it_does_not_take():
         tdelta.delta_conv1_backward(_t(a), _t(b), _t(kernel), _t(g[:, :, :1]), stride=15)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         k1.delta_conv1_backward(_t(a).to("meta"), _t(b), _t(kernel), _t(g), stride=15)
+    # the kernel's own limits (checked on CUDA tensors): 128-channel blocks,
+    # W' // S of 1 to 32; the scratch size is 0 outside them
+    assert (k1.BWD_CHANNEL_CHUNK, k1.BWD_MAX_J, k1.FEATURES) == (128, 32, 64)
+    assert k1.backward_padded_rows(32 * 15 + 14, 15) > 0
+    assert k1.backward_padded_rows(33 * 15, 15) == 0 and k1.backward_padded_rows(14, 15) == 0
