@@ -67,7 +67,9 @@ Phases, each printing one JSON line:
    with CUDA events beside the plain version and the library yardstick (two
    torch.matmul over the materialized operands, never called by the port);
    bounds as for K1 (operations 4*B*W'*J*S*C*F), with the share of the
-   3xTF32 bound and of the fp32 CUDA-core bound.
+   3xTF32 bound and of the fp32 CUDA-core bound. Two more forms reach beyond
+   one call of K2's C entry: C = 64 at W' = 360 (channels zero-padded to
+   128) and W' = 495 (W'//S = 33: two column groups), both at B = 4.
 6. train: ``OverlapNetConfig()`` at full width (bf16 legs, W' = 360, batch
    16, Adagrad), seeded weights, a seeded set of scans and column-rolled
    revisits on disk, through ``ResidentPairs`` +
@@ -88,10 +90,32 @@ Phases, each printing one JSON line:
    ``Infer`` gives the trained model's overlaps (|d| < 5e-3, bf16 legs).
    Step ms, pairs/s and a profiled window's device-busy share and top rows
    are printed as information.
+7. prep: the data-preparation path through the port's CLI at full size: a
+   seeded two-lap sequence of 300 sim scans (``sim/world.py`` defaults, up to
+   130,000 points a scan, padded to 140,000), ``gen-data`` (64x900 depth,
+   normal and intensity images), ``gen-gt --all-queries`` (300 x 300
+   pairs), ``pack``, and ``train --pack-dir`` for 8 steps of
+   ``OverlapNetConfig()`` (bf16 legs, W' = 360, batch 16) from host batches
+   that the native batcher gathers from the packs. Gates: (a) the first 8
+   scans' images on the card against the CPU (proj_idx equal on 99.99% of
+   the pixels; range, vertex and intensity equal bit for bit where the
+   winner is the same; normals within 1e-5 where they read the same
+   winners); (b) 8 query frames against all 300 on the card against the CPU
+   (ids and yaw bins equal, overlaps within 2 pixels' worth of the query),
+   again with TF32 allowed for matmuls; (c) the GT chunk loop runs under
+   ``torch.cuda.set_sync_debug_mode("error")``, and ``gen-gt``'s table is
+   the one ``com_overlap_yaw_all`` gives on the loaded scans; (d) batches of
+   ``PairImageDataset(packs=...)`` with rotate_data=1 equal the per-image
+   batches bit for bit, with the native library built and loaded; (e) K1
+   once and K2 once per train step (K1 also once per evaluated batch),
+   finite losses. Scans/s of gen-data, GT pairs/s by CUDA events and by the
+   host clock, the device time of one 256-pair GT chunk by kernel row, the
+   pack's build time and ms per step from packs against the resident store
+   are printed as information.
 
 Then the ``kernels`` line (K1 and K2; launches are the sums over the model,
-lcd and train phases' main-path runs), the nvidia-smi line, and last the
-result line.
+lcd, train and prep phases' main-path runs), the nvidia-smi line, and last
+the result line.
 Any failure raises: the exit code is non-zero and no result line is printed.
 It also fails when no CUDA device is visible, and when run outside a
 checkout of the repository.
@@ -190,9 +214,9 @@ def phase_env(torch, build):
     return smi, name
 
 
-def volume(torch, rng, bsz: int, w: int):
+def volume(torch, rng, bsz: int, w: int, c: int = C):
     """A (B, W', C) leg-feature-scale volume (ReLU outputs) on the card."""
-    return torch.from_numpy(np.maximum(rng.normal(size=(bsz, w, C)), 0).astype(np.float32)).cuda()
+    return torch.from_numpy(np.maximum(rng.normal(size=(bsz, w, c)), 0).astype(np.float32)).cuda()
 
 
 # (form, B, W', right volume expanded from one query, bias, timed beside the
@@ -267,17 +291,21 @@ def phase_kernel(torch, k1, plain, name, smi):
     return rows
 
 
-# (form, B, W', only the weight's gradient asked (frozen legs), timed, timed
-# beside the plain version and the library calls)
+# (form, B, W', C, only the weight's gradient asked (frozen legs), timed,
+# timed beside the plain version and the library calls)
 K2_FORMS = [
-    ("b16_w360", 16, 360, False, True, True),
-    ("b32_w360", 32, 360, False, True, True),
-    ("b16_w450", 16, 450, False, True, False),
-    ("frozen_legs_b16_w360", 16, 360, True, True, False),
+    ("b16_w360", 16, 360, C, False, True, True),
+    ("b32_w360", 32, 360, C, False, True, True),
+    ("b16_w450", 16, 450, C, False, True, False),
+    ("frozen_legs_b16_w360", 16, 360, C, True, True, False),
     # a partial wave of blocks and short batch sums: one pair, and the train
     # phase's parity batch
-    ("b1_w360", 1, 360, False, False, False),
-    ("b4_w360", 4, 360, False, False, False),
+    ("b1_w360", 1, 360, C, False, False, False),
+    ("b4_w360", 4, 360, C, False, False, False),
+    # shapes K1 takes beyond one call of K2's C entry: 64 channels (padded to
+    # 128), and W'//S = 33 (two column groups, 32 + 1)
+    ("c64_b4_w360", 4, 360, 64, False, True, False),
+    ("b4_w495", 4, 495, C, False, True, False),
 ]
 K2_GATE = 1e-4
 
@@ -299,15 +327,16 @@ def phase_kernel_bwd(torch, k1, plain, name, smi):
     torch.backends.cudnn.allow_tf32 = False
     peak_fp32, peak_tf32, peak_bw = card_peaks(name)
     rows = {}
-    for form, bsz, w, frozen, timed, yardsticks in K2_FORMS:
+    for form, bsz, w, c, frozen, timed, yardsticks in K2_FORMS:
         j = w // S
-        rng = np.random.default_rng(1000 + w + bsz)
-        a, b = volume(torch, rng, bsz, w), volume(torch, rng, bsz, w)
+        groups = -(-j // k1.BWD_MAX_J)  # calls of K2's C entry
+        rng = np.random.default_rng(1000 + w + bsz + c)
+        a, b = volume(torch, rng, bsz, w, c), volume(torch, rng, bsz, w, c)
         ties = float((a[:, :, None, :] == b[:, None, : j * S, :]).float().mean())
         if ties < 0.1:
             raise RuntimeError(f"test volumes hold too few exact ties ({ties})")
-        limit = math.sqrt(6.0 / (S * C + S * F))
-        kern = torch.from_numpy(rng.uniform(-limit, limit, size=(S, C, F)).astype(np.float32)).cuda()
+        limit = math.sqrt(6.0 / (S * c + S * F))
+        kern = torch.from_numpy(rng.uniform(-limit, limit, size=(S, c, F)).astype(np.float32)).cuda()
         g = torch.from_numpy(rng.normal(size=(bsz, w, j, F)).astype(np.float32)).cuda()
 
         def run():
@@ -316,8 +345,9 @@ def phase_kernel_bwd(torch, k1, plain, name, smi):
         before = k1.delta_conv1.backward_launches
         got = run()
         torch.cuda.synchronize()
-        if k1.delta_conv1.backward_launches != before + 1:
-            raise RuntimeError("K2's wrapper did not count its launch")
+        if k1.delta_conv1.backward_launches != before + groups:
+            raise RuntimeError(f"K2's wrapper counted {k1.delta_conv1.backward_launches - before} "
+                               f"launches for {groups} column groups")
         # every sum is taken in a fixed order: a second call gives the same bits
         again = run()
         torch.cuda.synchronize()
@@ -350,17 +380,17 @@ def phase_kernel_bwd(torch, k1, plain, name, smi):
             # (g @ W^T for every (i, j) row, |diff|^T @ g), without the sign
             # mask and the sums over j and i
             absd = (a.repeat(1, 1, S)[:, :, None, :]
-                    - b[:, : j * S].reshape(bsz, 1, j, S * C)).abs_().reshape(-1, S * C)
-            g2, wt = g.reshape(-1, F), kern.reshape(S * C, F).T.contiguous()
-            gw = torch.empty((g2.shape[0], S * C), device="cuda")
+                    - b[:, : j * S].reshape(bsz, 1, j, S * c)).abs_().reshape(-1, S * c)
+            g2, wt = g.reshape(-1, F), kern.reshape(S * c, F).T.contiguous()
+            gw = torch.empty((g2.shape[0], S * c), device="cuda")
             row["library_ms"] = time_ms(
                 torch, lambda: (torch.matmul(g2, wt, out=gw), torch.matmul(absd.T, g2)), 3, warmup=1)
             row["library_operand_gb"] = absd.numel() * 4 / 1e9
             del absd, gw
 
-        flops = (2 if frozen else 4) * bsz * w * j * S * C * F
-        nbytes = 4 * (2 * bsz * w * C + S * C * F + bsz * w * j * F
-                      + (0 if frozen else 2 * bsz * w * C) + S * C * F)
+        flops = (2 if frozen else 4) * bsz * w * j * S * c * F
+        nbytes = 4 * (2 * bsz * w * c + S * c * F + bsz * w * j * F
+                      + (0 if frozen else 2 * bsz * w * c) + S * c * F)
         t_bytes = nbytes / peak_bw * 1e3
         t_tf32 = flops / peak_tf32 * 1e3
         row.update({
@@ -372,6 +402,7 @@ def phase_kernel_bwd(torch, k1, plain, name, smi):
         rows[form] = row
         emit({
             "phase": "kernel_bwd", "kernel": k1.BWD_NAME, "form": form, "w": w, "j": j,
+            "channels": c, "column_groups": groups,
             "batch": bsz, "only_dkernel": frozen, "exact_tie_share": ties,
             "gate": f"|d| <= {K2_GATE} * (max|ref| + |ref|) per gradient",
             "two_calls_equal_bits": True,
@@ -602,7 +633,7 @@ def against_sequential(seq_infer, closures, candidates, fvs, gate: float):
     return worst, scores
 
 
-def busy_share(torch, run, top: int = 6) -> dict:
+def busy_share(torch, run, top: int = 6, name_chars: int = 60) -> dict:
     """Device-busy time over the host's wall time of ``run()`` under
     torch.profiler (whose own cost lengthens the host side). Busy time is
     the sum over kernel and copy rows (device type CUDA); an operator's row
@@ -627,7 +658,7 @@ def busy_share(torch, run, top: int = 6) -> dict:
             "device_idle_share": 1.0 - busy_ms / wall_ms if rows else None,
             "op_rows_device_ms": sum(e.self_device_time_total / 1e3 for e in events
                                      if e.device_type.name != "CUDA"),
-            "top": [[k[:60], ms] for k, ms in rows[:top]]}
+            "top": [[k[:name_chars], ms] for k, ms in rows[:top]]}
 
 
 def phase_lcd(torch, k1, smi):
@@ -1045,7 +1076,274 @@ def phase_train(torch, k1, smi):
     return launches
 
 
-PHASES = ("kernel", "kernel_bwd", "model", "lcd", "train")
+# -- phase prep -----------------------------------------------------------------
+
+PREP_FRAMES = 300     # a two-lap sim sequence: the second lap revisits the first
+PREP_SEED = 6
+PREP_QUERIES = 8      # query frames of the card-vs-CPU GT gate
+PREP_STEPS = 8        # train steps from the packs
+PIXEL_SHARE = 0.9999  # proj_idx equal on at least this share of pixels
+
+
+def images_against_cpu(torch, projection, pts: np.ndarray) -> dict:
+    """Gate (a): the card's range projection and normals of the scans
+    ``pts`` (K, P, 4) against the same functions on the CPU. proj_idx equal
+    on PIXEL_SHARE of the pixels (CUDA's asinf / atan2f differ from the
+    CPU's by ulps, which moves a point at a pixel boundary); where the
+    winner is the same, range, vertex and intensity equal bit for bit;
+    normals within 1e-5 where both are valid and the pixel and the two
+    neighbours a normal reads have the same winners."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        r, v, inten, idx = projection.range_projection(torch.from_numpy(pts).to(dev))
+        out[dev] = [x.cpu().numpy() for x in (r, v, inten, idx, projection.normal_map(r, v))]
+    (r, v, inten, idx, nrm), (cr, cv, ci, cidx, cn) = out["cuda"], out["cpu"]
+    same = idx == cidx
+    share_diff = float(1.0 - same.mean())
+    if same.mean() < PIXEL_SHARE:
+        raise RuntimeError(f"images: proj_idx differs on {share_diff:.2e} of the pixels")
+    for what, x, y in (("range", r, cr), ("vertex", v, cv), ("intensity", inten, ci)):
+        if not np.array_equal(x[same], y[same]):
+            raise RuntimeError(f"images: {what} differs where the winners agree")
+    stable = same & np.roll(same, -1, axis=2) & np.roll(same, -1, axis=1)
+    both = stable & ~(nrm == -1).all(-1) & ~(cn == -1).all(-1)
+    d_normal = float(np.abs(nrm[both] - cn[both]).max())
+    if d_normal > 1e-5 or not ((nrm == -1).all(-1) == (cn == -1).all(-1))[stable].all():
+        raise RuntimeError(f"images: normals differ by {d_normal} (gate 1e-5)")
+    return {"scans": len(pts), "pixels_with_another_winner_share": share_diff,
+            "pixels_with_another_winner": int((~same).sum()), "normal_max_absdiff": d_normal,
+            "gate_pixel_share": PIXEL_SHARE, "gate_normal": 1e-5}
+
+
+def gt_against_cpu(got: np.ndarray, want: np.ndarray, valid: np.ndarray, what: str) -> dict:
+    """Gate (b): ids and yaw bins equal; each overlap within 2 / (its
+    query's valid pixel count) of the CPU's."""
+    if not np.array_equal(got[:, [0, 1, 3]], want[:, [0, 1, 3]]):
+        raise RuntimeError(f"{what}: ids or yaw bins differ from the CPU's")
+    d = np.abs(got[:, 2] - want[:, 2])
+    tol = 2.0 / np.maximum(valid[want[:, 0].astype(int)], 1)
+    if (d > tol).any():
+        raise RuntimeError(f"{what}: overlap differs by {d.max()} (> 2 pixels of its query)")
+    return {"pairs": len(got), "overlap_max_absdiff": float(d.max()),
+            "overlap_max_absdiff_in_pixels": float((d / tol * 2).max()),
+            "equal_overlaps_share": float((d == 0).mean())}
+
+
+def phase_prep(torch, k1, smi):
+    """The data-preparation path on the card: sim scans -> gen-data ->
+    gen-gt --all-queries -> pack -> train --pack-dir, through the port's CLI."""
+    import json as json_mod
+
+    from overlapnet_torch.cli.__main__ import main as cli_main
+    from overlapnet_torch.core.config import OverlapNetConfig
+    from overlapnet_torch.data import native
+    from overlapnet_torch.data.dataset import PairImageDataset
+    from overlapnet_torch.data.gt_files import load_gt_pairs
+    from overlapnet_torch.data.pack import open_packs
+    from overlapnet_torch.geometry import kitti, overlap, projection
+    from overlapnet_torch.sim import world
+    from overlapnet_torch.train.checkpoint import latest_step
+
+    cfg = OverlapNetConfig()
+    assert (cfg.model.leg_dtype, cfg.model.input_width, cfg.train.batch_size) == (
+        "bfloat16", 900, 16)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- scans: a seeded two-lap sequence of up to 130,000-point scans
+        t0 = time.perf_counter()
+        seq = world.write_kitti_sequence(
+            os.path.join(tmp, "sim"), world.make_world(np.random.default_rng(PREP_SEED)),
+            world.loop_trajectory(PREP_FRAMES), seed=PREP_SEED)
+        sim_s = time.perf_counter() - t0
+        paths = kitti.load_files(seq["scan_folder"])
+        poses = kitti.poses_cam_to_velo(kitti.load_poses(seq["poses_file"]),
+                                        kitti.load_calib(seq["calib_file"]))
+        points_per_scan = [os.path.getsize(p) // 16 for p in paths]
+        native.build()
+        if not native.available():
+            raise RuntimeError("the native batcher did not load after native.build()")
+        pts = overlap.load_scans_padded(paths)
+
+        # ---- (a) the card's images against the CPU's, first 8 scans
+        images = images_against_cpu(torch, projection, pts[:8])
+
+        # ---- gen-data through the CLI: depth, normal, intensity images
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        if cli_main(["gen-data", "--scan-folder", seq["scan_folder"],
+                     "--dst-folder", os.path.join(data, "00")]) != 0:
+            raise RuntimeError("gen-data failed")
+        gen_data_s = time.perf_counter() - t0
+        depth0 = np.load(os.path.join(data, "00", "depth", "000000.npy"))
+        if depth0.shape != (64, 900) or not (depth0 > 0).any():
+            raise RuntimeError(f"gen-data wrote a {depth0.shape} depth image with no return")
+
+        # ---- gen-gt --all-queries through the CLI: 300 x 300 pairs
+        t0 = time.perf_counter()
+        if cli_main(["gen-gt", "--scan-folder", seq["scan_folder"], "--poses-file",
+                     seq["poses_file"], "--calib-file", seq["calib_file"], "--dst-folder",
+                     os.path.join(data, "00"), "--seq", "00", "--all-queries"]) != 0:
+            raise RuntimeError("gen-gt failed")
+        gen_gt_s = time.perf_counter() - t0
+        gt_dir = os.path.join(data, "00", "ground_truth")
+        table = np.load(os.path.join(gt_dir, "ground_truth_overlap_yaw.npz"))["overlaps"]
+
+        # the same table from the loaded scans, timed by CUDA events and the
+        # host clock, with (c) the chunk loop under the sync debug mode
+        loop = overlap.dispatch_chunks
+
+        def no_sync_loop(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return loop(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        overlap.dispatch_chunks = no_sync_loop
+        try:
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            gt = overlap.com_overlap_yaw_all(paths, poses, points=pts)
+            end.record()
+            torch.cuda.synchronize()
+            gt_host_s = time.perf_counter() - t0
+            gt_device_ms = start.elapsed_time(end)
+        finally:
+            overlap.dispatch_chunks = loop
+        if not np.array_equal(gt, table):
+            raise RuntimeError("gen-gt's table differs from com_overlap_yaw_all's on the same scans")
+        if not (np.isfinite(gt[:, 2]).all() and gt[:, 2].min() >= 0 and gt[:, 2].max() <= 1):
+            raise RuntimeError("GT overlaps not finite in [0, 1]")
+        if not np.allclose(gt[gt[:, 0] == gt[:, 1], 2], 1.0):
+            raise RuntimeError("a frame's overlap with itself is not 1")
+        n_pairs = len(gt)
+        revisits = gt[np.abs(gt[:, 0] - gt[:, 1]) == PREP_FRAMES // 2, 2]
+        # pairs the far-pair gate lets through to the device
+        radius = np.sqrt((pts[..., :3].astype(np.float64) ** 2).sum(-1)).max(-1)
+        t_norm = np.linalg.norm(poses[:, None, :3, 3] - poses[None, :, :3, 3], axis=-1)
+        live_pairs = int((t_norm - radius[None, :] < overlap.MAX_RANGE + 1.0).sum())
+
+        # ---- (b) 8 query frames against all 300, card against CPU, and the
+        # card again with TF32 allowed for matmuls (the transform is fp32)
+        queries = np.linspace(0, PREP_FRAMES - 1, PREP_QUERIES).astype(int)
+        valid = np.zeros(PREP_FRAMES)
+        valid[queries] = overlap.ranges_chunk(torch.from_numpy(pts[queries]))[1].numpy()
+        cpu = overlap.com_overlap_yaw_all(paths, poses, query_idxs=queries, points=pts,
+                                          chunk_size=128, device="cpu")
+        card = overlap.com_overlap_yaw_all(paths, poses, query_idxs=queries, points=pts)
+        gt_gate = gt_against_cpu(card, cpu, valid, "GT on the card")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            card_tf32 = overlap.com_overlap_yaw_all(paths, poses, query_idxs=queries, points=pts)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        gt_gate_tf32 = gt_against_cpu(card_tf32, cpu, valid, "GT on the card, TF32 allowed")
+        gt_gate_tf32["equal_to_tf32_off"] = bool(np.array_equal(card_tf32, card))
+
+        # information: device time of one GT chunk (256 pairs of the first 16
+        # frames) by kernel row
+        m = min(16, PREP_FRAMES)
+        sub = torch.from_numpy(pts[:m]).cuda()
+        rng_img, valid_dev, _ = overlap.ranges_chunk(sub)
+        planes = tuple(sub[..., i].contiguous() for i in range(3))
+        q = torch.arange(m, device="cuda").repeat_interleave(m)
+        r = torch.arange(m, device="cuda").repeat(m)
+        pose_dev = torch.from_numpy(poses[:m]).cuda()
+        T = torch.bmm(torch.linalg.inv(pose_dev)[q], pose_dev[r]).float()
+        overlap.pair_chunk(planes, rng_img, valid_dev, q, r, T)
+        chunk_profile = busy_share(
+            torch, lambda: overlap.pair_chunk(planes, rng_img, valid_dev, q, r, T), top=16,
+            name_chars=160)
+        del sub, planes, rng_img
+
+        # ---- pack through the CLI, then (d) pack batches == per-image batches
+        exp = os.path.join(tmp, "exp")
+        os.makedirs(exp)
+
+        def network_yml(testname):
+            path = os.path.join(exp, f"{testname}.yml")
+            with open(path, "w") as f:
+                json_mod.dump({  # JSON is YAML
+                    "data_root_folder": data, "experiments_path": exp, "testname": testname,
+                    "training_seqs": "00", "batch_size": 16, "no_epochs": 1,
+                    "no_batches_in_epoch": PREP_STEPS, "no_test_pairs": 16,
+                    "rotate_training_data": 1}, f)
+            return path
+
+        packs = os.path.join(tmp, "packs")
+        t0 = time.perf_counter()
+        if cli_main(["pack", network_yml("pack"), "--out-dir", packs]) != 0:
+            raise RuntimeError("pack failed")
+        pack_s = time.perf_counter() - t0
+        pairs = load_gt_pairs([os.path.join(gt_dir, "train_set.npz")], shuffle=False)
+        pairs = pairs[np.arange(64)]
+        kw = dict(channels=cfg.channels, height=64, width=900, rotate_data=1, seed=3)
+        from_packs = PairImageDataset(data, pairs, packs=open_packs(packs, ["00"]), **kw)
+        per_image = PairImageDataset(data, pairs, **kw)
+        if not (from_packs._rows1 >= 0).all():
+            raise RuntimeError("pairs not found in the pack")
+        for a, b in zip(from_packs.batches(16, shuffle=True), per_image.batches(16, shuffle=True)):
+            for key in b:
+                if not np.array_equal(a[key], b[key]):
+                    raise RuntimeError(f"pack batches differ from per-image batches in {key}")
+
+        # ---- (e) train from the packs through the CLI: host batches by the
+        # native gather (the main path, counted), then the resident store
+        def train(testname, *extra):
+            yml = network_yml(testname)
+            if cli_main(["train", yml, "--pack-dir", packs, *extra]) != 0:
+                raise RuntimeError(f"train {testname} failed")
+            out = os.path.join(exp, testname)
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                lines = [json_mod.loads(line) for line in f]
+            return latest_step(os.path.join(out, "checkpoints")), lines
+
+        k1.delta_conv1.launches = k1.delta_conv1.backward_launches = 0
+        steps, lines = train("from_packs", "--no-resident")
+        torch.cuda.synchronize()
+        launches = {"delta_conv1": k1.delta_conv1.launches,
+                    "delta_conv1_bwd": k1.delta_conv1.backward_launches}
+        eval_batches = sum(1 for x in lines if x["phase"] == "validation")
+        if steps != PREP_STEPS or launches != {"delta_conv1": steps + eval_batches,
+                                               "delta_conv1_bwd": steps}:
+            raise RuntimeError(f"launches {launches} for {steps} train steps and "
+                               f"{eval_batches} evaluated batch")
+        losses = [x for x in lines if x["phase"] == "train"]
+        if not all(np.isfinite(x["epoch_loss"]) and np.isfinite(x["loss"]) for x in losses):
+            raise RuntimeError(f"losses not finite: {losses}")
+        _, resident_lines = train("resident")
+        _, packs_again = train("from_packs_again", "--no-resident")
+        step_ms = {name: [x for x in ls if x["phase"] == "train"][0]["sec_per_dispatch"] * 1e3
+                   for name, ls in (("packs_first_run", lines), ("packs", packs_again),
+                                    ("resident", resident_lines))}
+
+    emit({
+        "phase": "prep", "frames": PREP_FRAMES,
+        "points_per_scan": [min(points_per_scan), max(points_per_scan)],
+        "sim_write_s": sim_s, "images_vs_cpu": images,
+        "gen_data_s": gen_data_s, "gen_data_scans_per_s": PREP_FRAMES / gen_data_s,
+        "gen_gt_cli_s": gen_gt_s, "gt_pairs": n_pairs, "gt_pairs_scored": live_pairs,
+        "gt_pairs_per_s_host_clock": n_pairs / gt_host_s,
+        "gt_pairs_per_s_cuda_events": n_pairs / gt_device_ms * 1e3,
+        "gt_host_s": gt_host_s, "gt_device_ms": gt_device_ms,
+        "gt_overlap_mean": float(gt[:, 2].mean()),
+        "gt_revisit_overlap_mean": float(revisits.mean()),
+        "sync_debug_mode_chunk_loop": "error: nothing raised",
+        "gt_vs_cpu": gt_gate, "gt_vs_cpu_tf32_allowed": gt_gate_tf32,
+        "gt_chunk_256_pairs_profile": chunk_profile,
+        "pack_s": pack_s, "pack_batches_equal_per_image": True,
+        "native_available": native.available(),
+        "train_from_packs": {"steps": steps, "launches": launches, "eval_batches": eval_batches,
+                             "losses": [x["epoch_loss"] for x in losses]},
+        "step_ms": step_ms, "card": smi,
+    })
+    return launches
+
+
+PHASES = ("kernel", "kernel_bwd", "model", "lcd", "train", "prep")
 
 
 def main(argv: list[str]) -> int:
@@ -1069,6 +1367,7 @@ def main(argv: list[str]) -> int:
         "model": lambda: phase_model(torch, k1, smi),
         "lcd": lambda: phase_lcd(torch, k1, smi),
         "train": lambda: phase_train(torch, k1, smi),
+        "prep": lambda: phase_prep(torch, k1, smi),
     }
     out = {phase: run[phase]() for phase in PHASES if not only or phase in only}
     if only:  # a part of the run, for development: no result line
@@ -1076,8 +1375,9 @@ def main(argv: list[str]) -> int:
         return 0
     fwd, bwd = out["kernel"], out["kernel_bwd"]
     k1_launches = {"model": out["model"], "lcd": out["lcd"],
-                   "train": out["train"]["delta_conv1"]}
-    k2_launches = {"train": out["train"]["delta_conv1_bwd"]}
+                   "train": out["train"]["delta_conv1"], "prep": out["prep"]["delta_conv1"]}
+    k2_launches = {"train": out["train"]["delta_conv1_bwd"],
+                   "prep": out["prep"]["delta_conv1_bwd"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "bound_3xtf32_ms", "bound_fp32_simt_ms")
     emit({"kernels": [{
@@ -1097,6 +1397,7 @@ def main(argv: list[str]) -> int:
         "share_of_3xtf32_bound": bwd["b16_w360"]["bound_3xtf32_ms"] / bwd["b16_w360"]["ms"],
         "ms_b32_w360": bwd["b32_w360"]["ms"], "ms_only_dkernel_b16_w360":
         bwd["frozen_legs_b16_w360"]["ms"],
+        "ms_c64_b4_w360": bwd["c64_b4_w360"]["ms"], "ms_b4_w495": bwd["b4_w495"]["ms"],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

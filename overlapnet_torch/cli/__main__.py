@@ -2,12 +2,15 @@
 
 Commands (reference counterparts in parentheses):
 
+  gen-data   preprocess scans into channel images   (demo1_gen_data.py)
   infer      overlap+yaw for one scan pair          (demo2_infer.py)
   lcd        online loop-closure detection          (demo3_lcd.py)
+  gen-gt     ground-truth overlap/yaw generation    (demo4_gen_gt_files.py)
   train      train from a network.yml               (training.py)
+  pack       build per-sequence image packs         (no reference counterpart)
 
-The other commands of the JAX package's CLI come with later slices of the
-port.
+Each runs on the card unless given ``--device cpu``. The JAX package's
+``evaluate`` and ``sim`` commands come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -21,12 +24,18 @@ def main(argv: list[str] | None = None) -> int:
         print(__doc__)
         return 0
     cmd, rest = argv[0], argv[1:]
-    if cmd == "infer":
+    if cmd == "gen-data":
+        from overlapnet_torch.cli.gen_data import main as run
+    elif cmd == "infer":
         from overlapnet_torch.cli.infer_pair import main as run
     elif cmd == "lcd":
         from overlapnet_torch.cli.lcd import main as run
+    elif cmd == "gen-gt":
+        from overlapnet_torch.cli.gen_gt import main as run
     elif cmd == "train":
         from overlapnet_torch.cli.train import main as run
+    elif cmd == "pack":
+        from overlapnet_torch.cli.pack import main as run
     else:
         print(f"Unknown command: {cmd}\n{__doc__}")
         return 2

@@ -8,8 +8,11 @@ mean/max/RMS, yaw RMS at overlap thresholds), a checkpoint and a flat-key
 ``params.npz`` per epoch, and jsonl metric logs. One device.
 
 Usage:
-  python -m overlapnet_torch.cli train <network.yml>
+  python -m overlapnet_torch.cli train <network.yml> [--pack-dir PACKS]
       [--resume] [--no-resident] [--device cuda|cpu] [--profile-dir DIR]
+
+``--pack-dir`` reads the scans of every sequence that has a pack there
+(``cli pack``) from it; the others from their per-image files.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from overlapnet_torch.core.config import load_config
 from overlapnet_torch.core.metrics import MetricWriter, setup_logging
 from overlapnet_torch.data.dataset import PairImageDataset, ResidentPairs, unique_scans
 from overlapnet_torch.data.gt_files import load_gt_pairs
+from overlapnet_torch.data.pack import open_packs
 
 # the deduplicated scan set goes to the device when it is smaller than this
 RESIDENT_LIMIT_BYTES = 4e9
@@ -66,7 +70,7 @@ def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(prog="train", description=__doc__)
     ap.add_argument("config")
     ap.add_argument("--pack-dir", default="",
-                    help="sequence packs: not ported yet, an error if given")
+                    help="directory of sequence packs (cli pack) to read scans from")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="where the model trains (default cuda; raises without a card)")
@@ -87,8 +91,6 @@ def main(argv: list[str]) -> int:
         "even when the deduplicated scan set fits in device memory)",
     )
     args = ap.parse_args(argv)
-    if args.pack_dir:
-        ap.error("--pack-dir: sequence packs are not ported yet; train from per-image files")
 
     from overlapnet_torch.models import leg_output_width
     from overlapnet_torch.train.checkpoint import (
@@ -115,10 +117,18 @@ def main(argv: list[str]) -> int:
     val_pairs = val_pairs[np.arange(n_val)]
     logger.info("training pairs: %d, validation pairs: %d", n_train, n_val)
 
+    seqs = set(pairs.dir1) | set(pairs.dir2) | set(val_pairs.dir1) | set(val_pairs.dir2)
+    packs = open_packs(args.pack_dir, sorted(seqs)) if args.pack_dir else None
+    want = (cfg.model.input_height, cfg.model.input_width, cfg.channels.num_channels)
+    for seq, pack in (packs or {}).items():
+        if tuple(pack.data.shape[1:]) != want:
+            ap.error(f"--pack-dir: the pack of {seq} holds {tuple(pack.data.shape[1:])} "
+                     f"images, the config's input is {want}")
     ds_kwargs = dict(
         channels=cfg.channels,
         height=cfg.model.input_height,
         width=cfg.model.input_width,
+        packs=packs,
     )
     train_ds = PairImageDataset(
         cfg.data.image_root, pairs,
@@ -140,7 +150,8 @@ def main(argv: list[str]) -> int:
 
     # device-resident fast path: when the deduplicated scan set fits in
     # device memory, put it there once and train on index batches (steps
-    # ship O(batch) integers instead of full images)
+    # ship O(batch) integers instead of full images). The store is float32
+    # whatever train.input_dtype says, as the JAX CLI builds it.
     resident = None
     if not args.no_resident:
         n_unique = len(unique_scans(pairs)[0])
@@ -149,8 +160,7 @@ def main(argv: list[str]) -> int:
             * cfg.channels.num_channels * 4
         )
         if footprint < RESIDENT_LIMIT_BYTES:
-            resident = ResidentPairs(train_ds, device=trainer.device,
-                                     input_dtype=cfg.train.input_dtype)
+            resident = ResidentPairs(train_ds, device=trainer.device)
             logger.info(
                 "device-resident training store: %d scans, %.1f MB",
                 n_unique, footprint / 1e6,

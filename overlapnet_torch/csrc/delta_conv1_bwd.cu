@@ -9,8 +9,12 @@
 //   db[b, S*j + k, c]  = -sum_i      gw * sign(diff)
 //   dW[k, c, f]        =  sum_{b, i, j} |diff| * g[b, i, j, f]
 //
-// a, bb: (B, W', C) fp32; W: (S, C, F = 64); J = W' / S. Rows of db past J*S
-// are not written here (the wrapper zeroes them).
+// a, bb: (B, W', C) fp32; W: (S, C, F = 64); J = W' / S. One call computes
+// the part of a group of at most 32 right columns j0 <= j < j0 + Jc: da's and
+// dW's parts from those columns and db's rows S*j0 .. S*(j0 + Jc) - 1, which
+// no other group writes. The wrapper (kernels/delta_conv1.py) runs the groups
+// in order and adds da's and dW's parts in that order; it zero-pads C to a
+// multiple of 128 and zeroes the rows of db past J*S.
 //
 // Replaces the JAX package's custom VJP of its Pallas kernel,
 // ops/pallas_delta.py::_core_bwd over _bwd_block: a lax.scan over blocks of
@@ -81,7 +85,7 @@ namespace {
 
 constexpr int F = 64;              // features: the cotangent's last axis
 constexpr int CT = 128;            // channels per block: two m64 tiles
-constexpr int MAX_JB = 4;          // Jp / 8 at most: J <= 32
+constexpr int MAX_JB = 4;          // Jp / 8 at most: 32 columns a call
 constexpr int CONSUMER_WGS = 2;
 constexpr int CONSUMERS = 128 * CONSUMER_WGS;
 constexpr int THREADS = CONSUMERS + 128;  // + one producer warpgroup
@@ -245,21 +249,22 @@ __global__ void split_w_kernel(const float* __restrict__ w, float* __restrict__ 
   ws[n + idx] = __uint_as_float(tf32_rna(x - __uint_as_float(hi)));
 }
 
-// g (B, W', J, F) split into tf32 hi / lo and padded: padded row
-// mp = i * jp + j (j < jp, i < m_pad / jp) is g[b, i, j] or zero.
+// g (B, W', J, F), from its column j0 on (g points at entry j0), split into
+// tf32 hi / lo and padded: padded row mp = i * jp + j (j < jp,
+// i < m_pad / jp) is g[b, i, j0 + j] for j < j_count, else zero.
 //   gs (2, B, m_pad, F): [0] hi, [1] lo, row-major (null: not written);
 //   gt (B, 2, F, m_pad): the same transposed (null: not written).
 // Grid (m_pad / 32, B), 256 threads.
 __global__ void __launch_bounds__(256)
 split_g_kernel(const float* __restrict__ g, float* __restrict__ gs, float* __restrict__ gt,
-               int width, int j_count, int jp, int m_pad) {
+               int width, int j_total, int j_count, int jp, int m_pad) {
   __shared__ float hi_s[32][F + 1], lo_s[32][F + 1];
   const int batch = blockIdx.y, m0 = 32 * blockIdx.x, tid = threadIdx.x;
   const long long part = (long long)gridDim.y * m_pad * F;
   for (int idx = tid; idx < 32 * F; idx += 256) {
     const int ml = idx / F, f = idx % F, mp = m0 + ml, i = mp / jp, j = mp - i * jp;
     const float x = (i < width && j < j_count)
-                        ? __ldg(g + (((long long)batch * width + i) * j_count + j) * F + f)
+                        ? __ldg(g + (((long long)batch * width + i) * j_total + j) * F + f)
                         : 0.f;
     const float hi = __uint_as_float(tf32_rna(x));
     const float lo = __uint_as_float(tf32_rna(x - hi));
@@ -708,14 +713,14 @@ cudaError_t with_jb(int jb, Fn fn) {
   }
 }
 
-// Padded (i, j) rows per batch element for `width` and `stride`: each left
-// row's J = width / stride entries padded to Jp = 8 * JB, the left rows to a
-// multiple of both product kernels' steps (16 / JB rows a tile in P1, 4 in
-// P2). 0 when J is outside 1..8 * MAX_JB. The wrapper sizes the scratch by the
-// same rule (kernels/delta_conv1.py::backward_padded_rows).
-int padded_rows(int width, int stride) {
-  if (stride < 1 || width < stride) return 0;
-  const int j_count = width / stride, jb = (j_count + 7) / 8;
+// Padded (i, j) rows per batch element for `width` left rows and a group of
+// `j_count` right columns: each left row's entries padded to Jp = 8 * JB, the
+// left rows to a multiple of both product kernels' steps (16 / JB rows a tile
+// in P1, 4 in P2). 0 when j_count is outside 1..8 * MAX_JB. The wrapper sizes
+// the scratch by the same rule (kernels/delta_conv1.py::backward_padded_rows).
+int padded_rows(int width, int j_count) {
+  if (width < 1 || j_count < 1) return 0;
+  const int jb = (j_count + 7) / 8;
   if (jb > MAX_JB) return 0;
   const int step = jb == 3 ? 20 : 16 / jb;  // lcm(16 / JB, 4)
   return (width + step - 1) / step * step * 8 * jb;
@@ -726,37 +731,48 @@ int padded_rows(int width, int stride) {
 // C entry point, bound from Python with ctypes. All tensors are contiguous
 // fp32 on the device of `stream`. `da`/`db` may both be null (no gradient
 // for the volumes is asked) and so may `dw`; what is null is not computed.
+// The call covers the right columns j0 <= j < j0 + j_count of the J =
+// width / stride (at most 32 of them): `da` and `dw` get that group's parts,
+// `db` its rows stride * j0 .. stride * (j0 + j_count) - 1; other rows of
+// `db` are left as they are.
 // Scratch, caller-allocated, with `m_pad` the padded rows the caller sized it
-// by, which must equal padded_rows(width, stride):
+// by, which must equal padded_rows(width, j_count):
 // with da/db, `da_part` batch * stride * width * channels floats, `g_split`
 // 2 * batch * m_pad * features and `w_split` 2 * stride * channels * features;
 // with dw, `dw_part` batch * stride * channels * features and `gt_split`
-// batch * 2 * features * m_pad. Rows of `db` from (width / stride) * stride
-// on are left as they are. Returns 0, a cudaError_t (cudaErrorInvalidValue
-// when the sizes are outside what the kernels take: features != 64, channels
-// not a multiple of 128, width / stride outside 1..32, another m_pad), or the
-// negated
-// CUresult of a failed tensor-map encode.
+// batch * 2 * features * m_pad. Returns 0, a cudaError_t
+// (cudaErrorInvalidValue when the sizes are outside what the kernels take:
+// features != 64, channels not a multiple of 128, a group outside 0..J or of
+// more than 32 columns, another m_pad), or the negated CUresult of a failed
+// tensor-map encode.
 extern "C" int delta_conv1_backward(const float* a, const float* bb, const float* w,
                                     const float* g, float* da, float* db, float* dw,
                                     float* da_part, float* dw_part, float* g_split,
                                     float* gt_split, float* w_split, int m_pad, int batch,
                                     int width, int channels, int stride, int features,
-                                    void* stream) {
+                                    int j0, int j_count, void* stream) {
   if (features != F || channels < CT || channels % CT != 0 || stride < 1 || width < stride ||
       batch < 1 || batch > 65535 || (da == nullptr) != (db == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (m_pad == 0 || m_pad != padded_rows(width, stride)) return (int)cudaErrorInvalidValue;
+  const int j_total = width / stride;
+  if (j0 < 0 || j_count < 1 || j0 + j_count > j_total) return (int)cudaErrorInvalidValue;
+  if (m_pad == 0 || m_pad != padded_rows(width, j_count)) return (int)cudaErrorInvalidValue;
   if (da == nullptr && dw == nullptr) return 0;
-  const int j_count = width / stride, jb = (j_count + 7) / 8;
+  const int jb = (j_count + 7) / 8;
+  // the group's right rows start at stride * j0: the kernels see bb and db
+  // from there on (their batch stride stays width * channels) and g from its
+  // column j0 on
+  const long long row0 = (long long)stride * j0 * channels;
+  bb += row0;
+  if (db != nullptr) db += row0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(stride, batch, channels / CT);
   cudaError_t err;
   int res;
 
   split_g_kernel<<<dim3(m_pad / 32, batch), 256, 0, s>>>(
-      g, da != nullptr ? g_split : nullptr, dw != nullptr ? gt_split : nullptr, width, j_count,
-      8 * jb, m_pad);
+      g + (long long)j0 * F, da != nullptr ? g_split : nullptr,
+      dw != nullptr ? gt_split : nullptr, width, j_total, j_count, 8 * jb, m_pad);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   if (da != nullptr) {

@@ -7,8 +7,10 @@ package's ``data/dataset.py``:
 
 - the reference ``np.load``s every channel image from disk for every pair in
   every epoch; here scans are assembled once into an in-host-RAM cache (a
-  KITTI sequence is ~1 GB at 64x900x4 fp32) and pairs index into it (the
-  memory-mapped sequence packs of the JAX package are not ported yet);
+  KITTI sequence is ~1 GB at 64x900x4 fp32) or memory-mapped from a
+  per-sequence pack file (``pack.py``), and pairs index into it; packed
+  sides of a batch are gathered by the native library (``native.py``, the
+  roll fused into the copy);
 - batches are materialized by a background thread (double buffering) so the
   device does not wait on IO;
 - the random right-image circular-shift augmentation (rotate_data 0/1/2,
@@ -24,14 +26,18 @@ import os
 import queue
 import random
 import threading
-from typing import Iterator
+from typing import TYPE_CHECKING, Iterator, Mapping
 
 import numpy as np
 import torch
 
 from overlapnet_torch.core.config import ChannelConfig
 from overlapnet_torch.core.device import resolve_device
+from overlapnet_torch.data import native
 from overlapnet_torch.data.gt_files import PairList
+
+if TYPE_CHECKING:
+    from overlapnet_torch.data.pack import SequencePack
 
 
 def load_channel_image(
@@ -87,12 +93,14 @@ def batch_starts(n: int, batch_size: int, drop_remainder: bool,
 
 class _ScanCache:
     """Thread-safe cache of assembled (H, W, C) scan images keyed by
-    (seq_dir, name), backed by per-image files."""
+    (seq_dir, name); backed by per-image files or a pack memmap (whose rows
+    come back as read-only views)."""
 
-    def __init__(self, image_root, channels, height, width):
+    def __init__(self, image_root, channels, height, width, packs=None):
         self._root = image_root
         self._channels = channels
         self._h, self._w = height, width
+        self._packs = packs or {}
         self._cache: dict[tuple[str, str], np.ndarray] = {}
         self._lock = threading.Lock()
 
@@ -102,7 +110,10 @@ class _ScanCache:
             img = self._cache.get(key)
         if img is not None:
             return img
-        img = assemble_scan_image(self._root, seq_dir, name, self._channels, self._h, self._w)
+        if seq_dir in self._packs:
+            img = self._packs[seq_dir].image(name)
+        else:
+            img = assemble_scan_image(self._root, seq_dir, name, self._channels, self._h, self._w)
         with self._lock:
             self._cache[key] = img
         return img
@@ -114,7 +125,9 @@ class PairImageDataset:
     Args mirror the reference generator's (ImagePairOverlapOrientation
     Sequence.py:17-55); ``orientation`` stays an integer yaw-bin per pair
     (the trainer builds the target vector on the device, train/losses.py).
-    ``packs`` (memory-mapped sequence packs) is not ported yet and raises.
+    ``packs`` maps a sequence directory to its ``SequencePack``: scans of
+    those sequences are read from the pack, and a batch's packed sides are
+    gathered by ``native.gather_batch``.
     """
 
     def __init__(
@@ -126,14 +139,10 @@ class PairImageDataset:
         width: int = 900,
         rotate_data: int = 0,
         seed: int = 1234,
-        packs=None,
+        packs: Mapping[str, SequencePack] | None = None,
         adjust_yaw_labels: bool = False,
         leg_output_width: int = 360,
     ):
-        if packs:
-            raise NotImplementedError(
-                "sequence packs are not ported yet; read per-image files (packs=None)"
-            )
         self.pairs = pairs
         self.width = width
         self.rotate_data = rotate_data
@@ -144,9 +153,22 @@ class PairImageDataset:
         # peak to argmax - s'), turning the same aug into yaw training signal.
         self.adjust_yaw_labels = adjust_yaw_labels
         self.leg_output_width = leg_output_width
-        self._cache = _ScanCache(image_root, channels, height, width)
+        self._packs = packs or {}
+        self._cache = _ScanCache(image_root, channels, height, width, packs)
         self._rng = random.Random(seed)
         self._shifts = self._draw_shifts()
+
+        # pack row of each pair side (-1: not packed)
+        def rows(dirs, names):
+            out = np.full(len(names), -1, np.int64)
+            for i, (d, n) in enumerate(zip(dirs, names)):
+                pack = self._packs.get(d)
+                if pack is not None and n in pack._index:
+                    out[i] = pack._index[n]
+            return out
+
+        self._rows1 = rows(pairs.dir1, pairs.imgf1)
+        self._rows2 = rows(pairs.dir2, pairs.imgf2) if pairs.imgf2 else np.zeros(0, np.int64)
 
     def _draw_shifts(self) -> np.ndarray:
         # randint(0, width) inclusive, like the reference (:51-53).
@@ -167,9 +189,25 @@ class PairImageDataset:
             ori = np.mod(ori - s_bins, wp).astype(np.int32)
         return ori
 
-    def _gather_side(self, idx, dirs, names, shifts) -> np.ndarray:
+    def _gather_side(self, idx, dirs, names, pack_rows, shifts) -> np.ndarray:
+        """One side of a batch, a fresh array: packed scans through the
+        native gather (roll fused), one call per sequence; the rest through
+        the scan cache."""
         out = None
+        packed = pack_rows[idx] >= 0
+        by_seq: dict[str, list[int]] = {}
         for k, i in enumerate(idx):
+            if packed[k]:
+                by_seq.setdefault(dirs[i], []).append(k)
+        for seq, ks in by_seq.items():
+            sh = shifts[idx[ks]] if shifts is not None else None
+            got = native.gather_batch(self._packs[seq].data, pack_rows[idx[ks]], sh)
+            if out is None:
+                out = np.empty((len(idx),) + got.shape[1:], np.float32)
+            out[ks] = got
+        for k, i in enumerate(idx):
+            if packed[k]:
+                continue
             img = self._cache.get(dirs[i], names[i])
             if shifts is not None:
                 img = np.roll(img, int(shifts[i]), axis=1)
@@ -209,8 +247,8 @@ class PairImageDataset:
             idx = order[start : start + batch_size]
             p = self.pairs
             shifts = self._shifts if self.rotate_data > 0 else None
-            x1 = self._gather_side(idx, p.dir1, p.imgf1, None)
-            x2 = self._gather_side(idx, p.dir2, p.imgf2, shifts)
+            x1 = self._gather_side(idx, p.dir1, p.imgf1, self._rows1, None)
+            x2 = self._gather_side(idx, p.dir2, p.imgf2, self._rows2, shifts)
             if input_dtype == "bfloat16":
                 x1 = torch.from_numpy(x1).to(torch.bfloat16)
                 x2 = torch.from_numpy(x2).to(torch.bfloat16)

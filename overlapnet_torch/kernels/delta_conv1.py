@@ -16,10 +16,17 @@ autograd through the plain forward; the Function itself also takes CPU
 tensors (plain forward, ``ops.delta.delta_conv1_backward``), which is how
 the tests reach its bookkeeping.
 
+K2's C entry takes 128-channel blocks and at most 32 right columns
+j = W' // S a call; ``grouped_backward`` widens that to every shape K1 takes
+(C % 32 == 0, any W' // S): it zero-pads the channels to a multiple of 128
+and runs K2 over groups of at most 32 columns, adding the groups' parts of
+da and dW in group order. The default legs (C = 128, W' // S = 24 or 30)
+take one call.
+
 ``delta_conv1.launches`` counts calls of K1's C entry (each launches the
 weight split, then K1) and ``delta_conv1.backward_launches`` calls of K2's
 (each launches the split of the cotangent, the product kernels asked for and
-their reductions), so a run
+their reductions; one a column group), so a run
 can show that its main path went through the kernels.
 """
 
@@ -27,8 +34,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable
 
 import torch
+import torch.nn.functional as nnf
 
 from overlapnet_torch.kernels import build
 from overlapnet_torch.ops import delta as plain
@@ -43,8 +52,8 @@ CHANNEL_CHUNK = 32  # K1: C must be a multiple of this
 BWD_NAME = "delta_conv1_bwd"
 BWD_SOURCE = "overlapnet_torch/csrc/delta_conv1_bwd.cu"
 BWD_REPLACES = "ops/pallas_delta.py:114"  # _core_bwd, the custom VJP of K1
-BWD_CHANNEL_CHUNK = 128  # K2: C must be a multiple of this
-BWD_MAX_J = 32  # K2: W' // S at most
+BWD_CHANNEL_CHUNK = 128  # K2's C entry: C a multiple of this (the wrapper pads)
+BWD_MAX_J = 32  # K2's C entry: right columns a call (the wrapper groups)
 INVALID_VALUE = 1  # cudaErrorInvalidValue: sizes the kernel does not take
 
 @functools.cache
@@ -60,20 +69,22 @@ def _entry():
 @functools.cache
 def _entry_bwd():
     fn = build.load(BWD_NAME).delta_conv1_backward
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def backward_padded_rows(width: int, stride: int) -> int:
+def backward_padded_rows(width: int, stride: int, j_count: int | None = None) -> int:
     """Padded (i, j) rows per batch element in K2's split copies of the
-    cotangent (``padded_rows`` in the source): each left
-    row's J = W' // S entries padded to a multiple of 8, the left rows to a
-    multiple of both product kernels' steps. 0 where K2 does not take J."""
-    j = width // stride if stride > 0 else 0
-    if not 1 <= j <= BWD_MAX_J:
+    cotangent (``padded_rows`` in the source) for a call over ``j_count``
+    right columns (default all W' // S): each left row's entries padded to a
+    multiple of 8, the left rows to a multiple of both product kernels'
+    steps. 0 where one call of K2 does not take the shape."""
+    if j_count is None:
+        j_count = width // stride if stride > 0 else 0
+    if not 1 <= j_count <= BWD_MAX_J or width < stride:
         return 0
-    jb = (j + 7) // 8
+    jb = (j_count + 7) // 8
     step = 20 if jb == 3 else 16 // jb  # lcm(16 // jb rows a tile, 4 rows)
     return -(-width // step) * step * 8 * jb
 
@@ -149,6 +160,112 @@ def _launch_forward(
     return out
 
 
+def grouped_backward(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    kernel: torch.Tensor,
+    g: torch.Tensor,
+    group_backward: Callable[..., tuple],
+    *,
+    stride: int,
+    need_volumes: bool = True,
+    need_kernel: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor | None, torch.Tensor | None]:
+    """K1's backward for every shape K1 takes, from a backward that takes
+    only C % 128 == 0 and at most 32 right columns a call (K2's C entry).
+
+    ``group_backward(a, b, kernel, g, j0, jc, need_volumes, need_kernel)``
+    returns (da, db, dkernel) of the right columns j0 <= j < j0 + jc alone:
+    da and dkernel that group's parts, db right on the rows S*j0 ..
+    S*(j0 + jc) - 1 (other rows are not read). The channels are zero-padded
+    to a multiple of 128 first, which is exact: a padded channel has |0 - 0|
+    = 0 and a zero weight row. The groups run in order of j0 and their parts
+    of da and dkernel are added in that order, so the sums keep a fixed
+    order. One group and no padding (the default legs) is one call whose
+    results are returned as they are. db is 0 on the rows past J*S.
+
+    a, b: (B, W', C) float32 contiguous; kernel: (S, C, F) float32; g:
+    (B, W', W'//S, F) float32.
+    """
+    bsz, w, c = a.shape
+    s, kc, f = kernel.shape
+    j = w // s
+    if s != stride or kc != c or f != FEATURES or c % CHANNEL_CHUNK or j < 1:
+        raise ValueError(
+            f"delta_conv1 backward takes (S={stride}, C % {CHANNEL_CHUNK} == 0, "
+            f"F={FEATURES}) with W' >= S; got kernel {tuple(kernel.shape)}, a {tuple(a.shape)}"
+        )
+    if tuple(g.shape) != (bsz, w, j, f) or tuple(b.shape) != tuple(a.shape):
+        raise ValueError(
+            f"shape mismatch: a {tuple(a.shape)}, b {tuple(b.shape)}, g {tuple(g.shape)}"
+        )
+    if not (need_volumes or need_kernel):
+        return None, None, None
+    pad = -c % BWD_CHANNEL_CHUNK
+    if pad:
+        a, b = nnf.pad(a, (0, pad)), nnf.pad(b, (0, pad))
+        kernel = nnf.pad(kernel, (0, 0, 0, pad))
+    da = db = dw = None
+    for j0 in range(0, j, BWD_MAX_J):
+        jc = min(BWD_MAX_J, j - j0)
+        da_g, db_g, dw_g = group_backward(a, b, kernel, g, j0, jc, need_volumes, need_kernel)
+        if need_volumes:
+            if da is None:
+                da, db = da_g, db_g
+            else:
+                da = da + da_g
+                rows = slice(s * j0, s * (j0 + jc))
+                db[:, rows] = db_g[:, rows]
+        if need_kernel:
+            dw = dw_g if dw is None else dw + dw_g
+    if need_volumes:
+        db[:, j * s :] = 0  # columns no tap reaches
+        if pad:
+            da, db = da[..., :c].contiguous(), db[..., :c].contiguous()
+    if need_kernel and pad:
+        dw = dw[:, :c].contiguous()
+    return da, db, dw
+
+
+def _launch_backward(a, b, kernel, g, j0: int, jc: int, need_volumes: bool,
+                     need_kernel: bool):
+    """One call of K2's C entry over the right columns j0 <= j < j0 + jc
+    (``grouped_backward``'s per-group backward on the card)."""
+    bsz, w, c = a.shape
+    s, _, f = kernel.shape
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=a.device)
+
+    m_pad = backward_padded_rows(w, s, jc)
+    da = db = da_part = dw = dw_part = g_split = gt_split = w_split = None
+    if need_volumes:
+        da, db, da_part = empty(bsz, w, c), empty(bsz, w, c), empty(bsz, s, w, c)
+        # the cotangent and the weight split into tf32 hi / lo (P1's operands)
+        g_split, w_split = empty(2, bsz, m_pad, f), empty(2, s * c, f)
+    if need_kernel:
+        dw, dw_part = empty(s, c, f), empty(bsz, s, c, f)
+        gt_split = empty(bsz, 2, f, m_pad)  # the same transposed (P2's operand)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    with torch.cuda.device(a.device):
+        err = _entry_bwd()(
+            a.data_ptr(), b.data_ptr(), kernel.data_ptr(), g.data_ptr(),
+            ptr(da), ptr(db), ptr(dw), ptr(da_part), ptr(dw_part),
+            ptr(g_split), ptr(gt_split), ptr(w_split),
+            m_pad, bsz, w, c, s, f, j0, jc, torch.cuda.current_stream().cuda_stream,
+        )
+    if err == INVALID_VALUE:
+        raise ValueError(f"delta_conv1 backward kernel does not take a {tuple(a.shape)} volume "
+                         f"with columns {j0}..{j0 + jc - 1}")
+    if err != 0:
+        raise RuntimeError(
+            f"delta_conv1 backward CUDA launch failed: "
+            f"{f'CUresult {-err}' if err < 0 else f'cudaError {err}'}"
+        )
+    delta_conv1.backward_launches += 1
+    return da, db, dw
+
+
 def delta_conv1_backward(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -160,8 +277,9 @@ def delta_conv1_backward(
     need_kernel: bool = True,
 ) -> tuple[torch.Tensor | None, torch.Tensor | None, torch.Tensor | None]:
     """Gradients of ``delta_conv1`` for the cotangent ``g``: (da, db,
-    dkernel) in float32, each None unless asked for. K2 for CUDA tensors, its
-    plain version ``ops.delta.delta_conv1_backward`` for CPU tensors.
+    dkernel) in float32, each None unless asked for. K2 for CUDA tensors
+    (``grouped_backward`` over its C entry: every shape K1 takes), its plain
+    version ``ops.delta.delta_conv1_backward`` for CPU tensors.
 
     Args:
       a, b: (B, W', C) volumes as K1 took them (a batch stride of 0 is
@@ -178,57 +296,12 @@ def delta_conv1_backward(
         raise ValueError(f"delta_conv1 backward runs on CUDA or CPU tensors, not {a.device}")
     a, b, kernel = a.float().contiguous(), b.float().contiguous(), kernel.float().contiguous()
     g = g.float().contiguous()
-    bsz, w, c = a.shape
-    s, _, f = kernel.shape
-    j = w // s
-    if f != FEATURES or c % BWD_CHANNEL_CHUNK or not 1 <= j <= BWD_MAX_J or s != stride:
-        raise ValueError(
-            f"delta_conv1 backward kernel takes (C % {BWD_CHANNEL_CHUNK} == 0, "
-            f"F={FEATURES}, W' // S <= {BWD_MAX_J}); got kernel "
-            f"{tuple(kernel.shape)}, a {tuple(a.shape)}"
-        )
-    if tuple(g.shape) != (bsz, w, j, f) or tuple(b.shape) != tuple(a.shape):
-        raise ValueError(
-            f"shape mismatch: a {tuple(a.shape)}, b {tuple(b.shape)}, g {tuple(g.shape)}"
-        )
     for name, x in (("a", a), ("b", b), ("kernel", kernel), ("g", g)):
-        if x.device != a.device or x.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 on {a.device}")
+        if x.device != a.device:
+            raise ValueError(f"{name} must be on {a.device}")
         _check_aligned(name, x)
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=a.device)
-
-    if not (need_volumes or need_kernel):
-        return None, None, None
-    m_pad = backward_padded_rows(w, s)
-    da = db = da_part = dw = dw_part = g_split = gt_split = w_split = None
-    if need_volumes:
-        da, db, da_part = empty(bsz, w, c), empty(bsz, w, c), empty(bsz, s, w, c)
-        # the cotangent and the weight split into tf32 hi / lo (P1's operands)
-        g_split, w_split = empty(2, bsz, m_pad, f), empty(2, s * c, f)
-        if w > j * s:  # columns no tap reaches
-            db[:, j * s :] = 0
-    if need_kernel:
-        dw, dw_part = empty(s, c, f), empty(bsz, s, c, f)
-        gt_split = empty(bsz, 2, f, m_pad)  # the same transposed (P2's operand)
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    with torch.cuda.device(a.device):
-        err = _entry_bwd()(
-            a.data_ptr(), b.data_ptr(), kernel.data_ptr(), g.data_ptr(),
-            ptr(da), ptr(db), ptr(dw), ptr(da_part), ptr(dw_part),
-            ptr(g_split), ptr(gt_split), ptr(w_split),
-            m_pad, bsz, w, c, s, f, torch.cuda.current_stream().cuda_stream,
-        )
-    if err == INVALID_VALUE:
-        raise ValueError(f"delta_conv1 backward kernel does not take a {tuple(a.shape)} volume")
-    if err != 0:
-        raise RuntimeError(
-            f"delta_conv1 backward CUDA launch failed: "
-            f"{f'CUresult {-err}' if err < 0 else f'cudaError {err}'}"
-        )
-    delta_conv1.backward_launches += 1
-    return da, db, dw
+    return grouped_backward(a, b, kernel, g, _launch_backward, stride=stride,
+                            need_volumes=need_volumes, need_kernel=need_kernel)
 
 
 class DeltaConv1Function(torch.autograd.Function):

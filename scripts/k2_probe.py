@@ -128,7 +128,7 @@ def main() -> int:
                     ptxas[kern] = [x.strip() for x in lines[n + 1:n + 4] if "Used" in x or "spill" in x]
         print(json.dumps({"variant": name, "ptxas": ptxas, "hgmma": sass.count("HGMMA")}), flush=True)
         fn = ctypes.CDLL(so).delta_conv1_backward
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         entries[name] = fn
 

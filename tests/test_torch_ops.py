@@ -409,8 +409,74 @@ def test_k2_wrapper_rejects_what_it_does_not_take():
         tdelta.delta_conv1_backward(_t(a), _t(b), _t(kernel), _t(g[:, :, :1]), stride=15)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         k1.delta_conv1_backward(_t(a).to("meta"), _t(b), _t(kernel), _t(g), stride=15)
-    # the kernel's own limits (checked on CUDA tensors): 128-channel blocks,
-    # W' // S of 1 to 32; the scratch size is 0 outside them
+    # one call of K2's C entry takes 128-channel blocks and at most 32 right
+    # columns (the scratch size is 0 outside them); grouped_backward pads and
+    # groups the rest, and still rejects what K1 does not take
     assert (k1.BWD_CHANNEL_CHUNK, k1.BWD_MAX_J, k1.FEATURES) == (128, 32, 64)
     assert k1.backward_padded_rows(32 * 15 + 14, 15) > 0
     assert k1.backward_padded_rows(33 * 15, 15) == 0 and k1.backward_padded_rows(14, 15) == 0
+    assert k1.backward_padded_rows(33 * 15, 15, 32) > 0 and k1.backward_padded_rows(33 * 15, 15, 1) > 0
+
+    def no_group(*args):
+        raise AssertionError("no group may run for a shape K1 does not take")
+
+    with pytest.raises(ValueError, match="F=64"):  # F = 16
+        k1.grouped_backward(_t(a), _t(b), _t(kernel), _t(g), no_group, stride=15)
+    a, b, kernel, g = _relu_volumes(16, 1, 30, 48, 15, 64)
+    with pytest.raises(ValueError, match="C % 32"):
+        k1.grouped_backward(_t(a), _t(b), _t(kernel), _t(g), no_group, stride=15)
+    a, b, kernel, g = _relu_volumes(16, 1, 30, 64, 15, 64)
+    with pytest.raises(ValueError, match="S=5"):
+        k1.grouped_backward(_t(a), _t(b), _t(kernel), _t(g), no_group, stride=5)
+    with pytest.raises(ValueError, match="g "):
+        k1.grouped_backward(_t(a), _t(b), _t(kernel), _t(g[:, :, :1]), no_group, stride=15)
+
+
+def _plain_group(calls):
+    """``grouped_backward``'s per-group backward from the plain version:
+    the cotangent outside the group's columns zeroed; db's rows outside the
+    group NaN, so that reading them would show."""
+
+    def run(a, b, kernel, g, j0, jc, need_volumes, need_kernel):
+        s = kernel.shape[0]
+        calls.append((j0, jc, a.shape[2]))
+        gm = torch.zeros_like(g)
+        gm[:, :, j0 : j0 + jc] = g[:, :, j0 : j0 + jc]
+        da, db, dw = tdelta.delta_conv1_backward(a, b, kernel, gm, stride=s)
+        rows = slice(s * j0, s * (j0 + jc))
+        db_group = torch.full_like(db, float("nan"))
+        db_group[:, rows] = db[:, rows]
+        return (da if need_volumes else None, db_group if need_volumes else None,
+                dw if need_kernel else None)
+
+    return run
+
+
+@pytest.mark.parametrize("w,s,c,groups", [
+    (99, 3, 128, [(0, 32, 128), (32, 1, 128)]),                    # J = 33
+    (212, 3, 128, [(0, 32, 128), (32, 32, 128), (64, 6, 128)]),    # J = 70, 2 rows past J*S
+    (60, 3, 32, [(0, 20, 128)]),                                   # C = 32 padded to 128
+    (100, 3, 64, [(0, 32, 128), (32, 1, 128)]),                    # C = 64 and J = 33
+])
+def test_k2_grouping_matches_the_ungrouped_backward(w, s, c, groups):
+    """K2's reach widened to every shape K1 takes: channels zero-padded to
+    a multiple of 128, right columns in groups of at most 32, da's and dW's
+    group parts added in group order, db taken from each group's own rows and
+    0 past J*S. Driven through the plain backward as the per-group callable
+    (the card runs K2's C entry there), in float64 against the ungrouped plain
+    backward: the parts are the same sums split, so 1e-10."""
+    a, b, kernel, g = (_t(x).double() for x in _relu_volumes(21, 2, w, c, s, 64))
+    want = tdelta.delta_conv1_backward(a, b, kernel, g, stride=s)
+    calls = []
+    got = k1.grouped_backward(a, b, kernel, g, _plain_group(calls), stride=s)
+    assert calls == groups
+    for name, x, y in zip(("da", "db", "dkernel"), got, want):
+        assert x.shape == y.shape and x.is_contiguous(), name
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-10, atol=1e-10, err_msg=name)
+    assert not got[1][:, (w // s) * s :].any()
+    # frozen legs: only dkernel, the same groups
+    calls.clear()
+    da, db, dw = k1.grouped_backward(a, b, kernel, g, _plain_group(calls), stride=s,
+                                     need_volumes=False)
+    assert da is None and db is None and calls == groups
+    np.testing.assert_allclose(dw.numpy(), want[2].numpy(), rtol=1e-10, atol=1e-10)

@@ -619,8 +619,8 @@ def test_dataset_bfloat16_batches_and_rejected_arguments(tmp_path):
     np.testing.assert_allclose(b["x1"].float().numpy(), b32["x1"], rtol=0.01, atol=0.01)
     with pytest.raises(ValueError, match="input_dtype"):
         list(ds.batches(1, input_dtype="float16"))
-    with pytest.raises(NotImplementedError, match="packs"):
-        tdata.PairImageDataset(root, ds.pairs, ChannelConfig(), packs={"07": object()})
+    with pytest.raises(ValueError, match="input_dtype"):
+        tdata.ResidentPairs(ds, device="cpu", input_dtype="float16")
 
 
 def test_a_missing_scan_raises_in_the_consumer(tmp_path):
@@ -835,8 +835,14 @@ def test_cli_train_runs_resumes_and_exports(tmp_path, resident):
 
 
 def test_cli_train_rejects_pack_dir(tmp_path, capsys):
+    """--pack-dir whose pack holds images of another shape than the config's
+    input is an argument error (packs that fit: tests/test_torch_data.py)."""
+    from overlapnet_torch.data.pack import SequencePack
+
     root = _disk_dataset(tmp_path / "data", 3, 4, write_gt=True)[2]
     yml = _network_yml(tmp_path, root)
+    packs = str(tmp_path / "packs")
+    SequencePack.build(root, "07", ChannelConfig(), packs, height=64, width=W_IN // 2)
     with pytest.raises(SystemExit) as e:
-        cli_main(["train", yml, "--device", "cpu", "--pack-dir", str(tmp_path)])
-    assert e.value.code == 2 and "not ported" in capsys.readouterr().err
+        cli_main(["train", yml, "--device", "cpu", "--pack-dir", packs])
+    assert e.value.code == 2 and "the config's input is" in capsys.readouterr().err
