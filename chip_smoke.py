@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths (pair scoring, online loop closing)
-and its training path on one CUDA card.
+"""Drive the PyTorch port's serving paths (pair scoring, online loop closing),
+its training and data-preparation paths and its end-to-end harness (sim
+scans to pose graph) on one CUDA card.
 
 Run from the root of the repository:
 
@@ -112,10 +113,28 @@ Phases, each printing one JSON line:
    host clock, the device time of one 256-pair GT chunk by kernel row, the
    pack's build time and ms per step from packs against the resident store
    are printed as information.
+8. e2e: the sim harness ``sim.e2e.run_e2e(device="cuda")`` at full width
+   (64 sim frames of up to 130,000 points, ``OverlapNetConfig()`` with
+   ``make_config``'s overrides, bf16 legs, W' = 360, 6 epochs at batch 8):
+   images, GT, resident training, online loop closing, pose graph. Gates:
+   (a) the floors of tests/test_accuracy_floor.py (trained overlap RMS below
+   0.8 of the untrained, loop-closure F1 >= 0.9, false positives <= true
+   positives, yaw error p50 <= 2 degrees, ATE after <= 1.2 x before); K1
+   once per train step and evaluated batch and K2 once per train step in
+   training, K1 in loop closing; (b) ``cli evaluate``'s ``evaluate()`` on the
+   run's validation set with its ``trained_params.npz``: overlap RMS within
+   1e-3 of ``Trainer.evaluate``'s; (c) the pose graph at KITTI 00's length
+   (4,541 poses, 200 yaw-only closures, 5 gross outliers, 30 iterations of
+   200 CG steps, annealed Tukey): the card against the same call on the CPU
+   (poses within 1e-3 m and 1e-4 rad, ATE within 1e-3 m), three calls on the
+   card with equal bits, the solve under
+   ``torch.cuda.set_sync_debug_mode("error")``. Stage times, ms per solve on
+   the card and on the CPU and a profiled one-iteration solve are printed as
+   information, and the whole metrics dict.
 
 Then the ``kernels`` line (K1 and K2; launches are the sums over the model,
-lcd, train and prep phases' main-path runs), the nvidia-smi line, and last
-the result line.
+lcd, train, prep and e2e phases' main-path runs), the nvidia-smi line, and
+last the result line.
 Any failure raises: the exit code is non-zero and no result line is printed.
 It also fails when no CUDA device is visible, and when run outside a
 checkout of the repository.
@@ -1343,7 +1362,200 @@ def phase_prep(torch, k1, smi):
     return launches
 
 
-PHASES = ("kernel", "kernel_bwd", "model", "lcd", "train", "prep")
+# -- phase e2e ------------------------------------------------------------------
+
+E2E_FRAMES, E2E_EPOCHS, E2E_BATCH = 64, 6, 8  # run_e2e's defaults
+PG_POSES = 4541       # the length of KITTI sequence 00
+PG_CLOSURES, PG_OUTLIERS = 200, 5
+PG_SOLVE = dict(iterations=30, cg_iters=200, robust_delta=3.0, robust_kernel="tukey",
+                robust_anneal_start=300.0)  # run_pose_graph's solve
+
+
+def loop_graph(n: int = PG_POSES, seed: int = 7):
+    """A seeded four-lap 150 m x 100 m rectangle of ``n`` SE(2) poses, its
+    drifted odometry (``e2e.drifted_odometry``, 3e-4 rad of yaw bias a
+    frame), PG_CLOSURES yaw-only closures between laps (true yaw plus 0.5
+    degree noise) and PG_OUTLIERS gross ones (random frames, random yaw), as
+    ``closures_to_edges`` weighs them. Returns (gt, odometry, graph)."""
+    from overlapnet_torch.backend import closures_to_edges, odometry_edges
+    from overlapnet_torch.lcd.online import LoopClosure
+    from overlapnet_torch.sim.e2e import drifted_odometry
+
+    rng = np.random.default_rng(seed)
+    lap = n // 4 + 1
+    a, b = 150.0, 100.0
+    s = (np.arange(n) % lap) * (2 * (a + b) / lap)
+    corners = np.array([[0.0, 0.0], [a, 0.0], [a, b], [0.0, b]])
+    side = np.searchsorted([a, a + b, 2 * a + b], s, side="right")
+    start = np.array([0.0, a, a + b, 2 * a + b])[side]
+    heading = side * (np.pi / 2)
+    xy = corners[side] + (s - start)[:, None] * np.column_stack([np.cos(heading), np.sin(heading)])
+    gt = np.column_stack([xy, np.arctan2(np.sin(heading), np.cos(heading))])
+    est = drifted_odometry(gt, yaw_drift=3e-4, seed=seed)
+    frames = np.sort(rng.choice(np.arange(lap, n), PG_CLOSURES, replace=False))
+    closures = []
+    for f in frames:
+        m = int(f - lap * rng.integers(1, f // lap + 1))
+        yaw = np.degrees(np.arctan2(np.sin(gt[f, 2] - gt[m, 2]), np.cos(gt[f, 2] - gt[m, 2])))
+        closures.append(LoopClosure(int(f), m, 0.8, float(yaw + rng.normal(0, 0.5))))
+    for f in rng.choice(np.arange(lap, n), PG_OUTLIERS, replace=False):
+        closures.append(LoopClosure(int(f), int(rng.integers(0, lap // 2)), 0.9,
+                                    float(rng.uniform(-180, 180))))
+    return gt, est, odometry_edges(est).merged(closures_to_edges(closures, n))
+
+
+def phase_e2e(torch, k1, smi):
+    """The sim e2e harness on the card: (a) ``run_e2e`` at full width, (b)
+    ``cli evaluate`` on its validation set, (c) the pose graph at KITTI 00's
+    length."""
+    from overlapnet_torch.backend import absolute_trajectory_error, pose_graph
+    from overlapnet_torch.cli import evaluate as cli_evaluate
+    from overlapnet_torch.sim import e2e
+    from overlapnet_torch.weights import load_npz
+
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults, as a user runs it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = lambda: (k1.delta_conv1.launches, k1.delta_conv1.backward_launches)  # noqa: E731
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- (a) run_e2e, each stage timed and its launches counted
+        stages = {}
+
+        def staged(name, fn):
+            def run(*args, **kw):
+                before, t0 = launches(), time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                after = launches()
+                stages[name] = {"s": time.perf_counter() - t0, "delta_conv1": after[0] - before[0],
+                                "delta_conv1_bwd": after[1] - before[1]}
+                return out
+            return run
+
+        names = ("generate_sequence", "build_gt", "train_and_eval", "run_lcd", "run_pose_graph")
+        originals = {name: getattr(e2e, name) for name in names}
+        for name in names:
+            setattr(e2e, name, staged(name, originals[name]))
+        work = os.path.join(tmp, "e2e")
+        k1.delta_conv1.launches = k1.delta_conv1.backward_launches = 0
+        t0 = time.perf_counter()
+        try:
+            m = e2e.run_e2e(work, n_frames=E2E_FRAMES, epochs=E2E_EPOCHS,
+                            batch_size=E2E_BATCH, device="cuda")
+        finally:
+            for name in names:
+                setattr(e2e, name, originals[name])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        harness = {"delta_conv1": k1.delta_conv1.launches,
+                   "delta_conv1_bwd": k1.delta_conv1.backward_launches}
+        floors = {
+            "trained_rms_below_0.8_untrained":
+                m["trained_overlap_rms_error"] < 0.8 * m["untrained_overlap_rms_error"],
+            "lcd_f1_at_least_0.9": m["lcd_f1"] >= 0.9,
+            "false_positives_at_most_true_positives":
+                m["lcd_false_positives"] <= m["lcd_true_positives"],
+            "yaw_p50_at_most_2_deg": m.get("lcd_yaw_err_p50_deg", 0.0) <= 2.0,
+            "ate_after_at_most_1.2_before": m["ate_after_m"] <= 1.2 * m["ate_before_m"],
+        }
+        print(json.dumps({"e2e_metrics": m}, default=float), flush=True)
+        if not all(floors.values()):
+            raise RuntimeError(f"e2e floors failed: {floors}")
+        steps = E2E_EPOCHS * (m["train_n_train_pairs"] // E2E_BATCH)
+        eval_batches = 2 * math.ceil(m["train_n_val_pairs"] / E2E_BATCH)  # untrained, trained
+        train = stages["train_and_eval"]
+        if (train["delta_conv1"], train["delta_conv1_bwd"]) != (steps + eval_batches, steps):
+            raise RuntimeError(f"training launched {train} for {steps} steps and "
+                               f"{eval_batches} evaluated batches")
+        lcd = stages["run_lcd"]
+        if not 0 < lcd["delta_conv1"] <= E2E_FRAMES or lcd["delta_conv1_bwd"]:
+            raise RuntimeError(f"loop closing launched {lcd}")
+
+        # ---- (b) cli evaluate's evaluate() on the run's validation set with
+        # its trained_params.npz (network.yml cannot name the harness's
+        # cosine head, so the harness's own config is passed)
+        cfg = e2e.make_config(work, batch_size=E2E_BATCH, no_epochs=E2E_EPOCHS)
+        cfg.data.training_seqs = [e2e.SEQ]
+        params = load_npz(os.path.join(work, "trained_params.npz"))
+        k1.delta_conv1.launches = k1.delta_conv1.backward_launches = 0
+        t0 = time.perf_counter()
+        ev_metrics, ev = cli_evaluate.evaluate(cfg, params, device="cuda")
+        evaluate_s = time.perf_counter() - t0
+        ev_launches = k1.delta_conv1.launches
+        d_rms = abs(ev_metrics["overlap_rms_error"] - m["trained_overlap_rms_error"])
+        if len(ev["pred_overlap"]) != m["train_n_val_pairs"] or d_rms > 1e-3 or not ev_launches:
+            raise RuntimeError(f"cli evaluate: {len(ev['pred_overlap'])} pairs, overlap RMS "
+                               f"{ev_metrics['overlap_rms_error']} against Trainer.evaluate's "
+                               f"{m['trained_overlap_rms_error']}, {ev_launches} K1 launches")
+
+    # ---- (c) the pose graph at KITTI 00's length: card against the CPU,
+    # two card calls equal, no host sync in the solve
+    gt, est, graph = loop_graph()
+    t0 = time.perf_counter()
+    cpu_poses, cpu_chi2 = pose_graph.optimize_pose_graph(graph, est, device="cpu", **PG_SOLVE)
+    cpu_s = time.perf_counter() - t0
+    solve = pose_graph._gauss_newton
+
+    def no_sync_solve(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return solve(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    runs = []
+    pose_graph._gauss_newton = no_sync_solve
+    try:
+        for _ in range(3):  # the first pays for cold caches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append(pose_graph.optimize_pose_graph(graph, est, device="cuda", **PG_SOLVE))
+            runs[-1] += (time.perf_counter() - t0,)
+    finally:
+        pose_graph._gauss_newton = solve
+    (p1, c1, _), (p2, c2, s2), (p3, c3, s3) = runs
+    if not (np.array_equal(p2, p1) and np.array_equal(p3, p1) and np.array_equal(c2, c1)):
+        raise RuntimeError("two pose-graph solves on the card gave different bits")
+    d_xy = float(np.abs(p1[:, :2] - cpu_poses[:, :2]).max())
+    d_th = np.abs(p1[:, 2] - cpu_poses[:, 2]) % (2 * np.pi)
+    d_th = float(np.minimum(d_th, 2 * np.pi - d_th).max())
+    ate = {"before": absolute_trajectory_error(est, gt)["ate_rmse"],
+           "cpu": absolute_trajectory_error(cpu_poses, gt)["ate_rmse"],
+           "card": absolute_trajectory_error(p1, gt)["ate_rmse"]}
+    if d_xy > 1e-3 or d_th > 1e-4 or abs(ate["card"] - ate["cpu"]) > 1e-3:
+        raise RuntimeError(f"pose graph: card against CPU {d_xy} m, {d_th} rad, ATE {ate}")
+    one_iteration = busy_share(torch, lambda: pose_graph.optimize_pose_graph(
+        graph, est, device="cuda", **dict(PG_SOLVE, iterations=1)), top=8)
+
+    emit({
+        "phase": "e2e", "config": "OverlapNetConfig() 64x900x4, bf16 legs, W'=360, "
+        f"make_config overrides (cosine head, adam 3e-4), {E2E_FRAMES} sim frames, "
+        f"{E2E_EPOCHS} epochs, batch {E2E_BATCH}",
+        "run_e2e_s": run_s, "stages": stages, "floors": floors, "launches": harness,
+        "train_steps": steps, "eval_batches": eval_batches,
+        "lcd_f1": m["lcd_f1"], "lcd_yaw_rmse_deg": m["lcd_yaw_rmse_deg"],
+        "lcd_yaw_err_p50_deg": m.get("lcd_yaw_err_p50_deg"),
+        "ate_before_m": m["ate_before_m"], "ate_after_m": m["ate_after_m"],
+        "trained_overlap_rms_error": m["trained_overlap_rms_error"],
+        "untrained_overlap_rms_error": m["untrained_overlap_rms_error"],
+        "cli_evaluate": {"s": evaluate_s, "pairs": len(ev["pred_overlap"]),
+                         "delta_conv1": ev_launches, "metrics": ev_metrics,
+                         "overlap_rms_vs_trainer_evaluate": d_rms},
+        "pose_graph": {
+            "poses": PG_POSES, "edges": graph.n_edges, **PG_SOLVE,
+            "ms_per_solve_card": [s2 * 1e3, s3 * 1e3], "ms_first_solve_card": runs[0][2] * 1e3,
+            "ms_per_solve_cpu": cpu_s * 1e3, "card_vs_cpu_xy_m": d_xy, "card_vs_cpu_rad": d_th,
+            "ate_m": ate, "equal_bits_across_card_calls": True,
+            "sync_debug_mode": "error: nothing raised", "chi2_first_last": [float(c1[0]),
+                                                                           float(c1[-1])],
+            "one_iteration_profile": one_iteration},
+        "phase_s": time.perf_counter() - phase_t0, "card": smi,
+    })
+    return {"delta_conv1": harness["delta_conv1"] + ev_launches,
+            "delta_conv1_bwd": harness["delta_conv1_bwd"]}
+
+
+PHASES = ("kernel", "kernel_bwd", "model", "lcd", "train", "prep", "e2e")
 
 
 def main(argv: list[str]) -> int:
@@ -1368,6 +1580,7 @@ def main(argv: list[str]) -> int:
         "lcd": lambda: phase_lcd(torch, k1, smi),
         "train": lambda: phase_train(torch, k1, smi),
         "prep": lambda: phase_prep(torch, k1, smi),
+        "e2e": lambda: phase_e2e(torch, k1, smi),
     }
     out = {phase: run[phase]() for phase in PHASES if not only or phase in only}
     if only:  # a part of the run, for development: no result line
@@ -1375,9 +1588,8 @@ def main(argv: list[str]) -> int:
         return 0
     fwd, bwd = out["kernel"], out["kernel_bwd"]
     k1_launches = {"model": out["model"], "lcd": out["lcd"],
-                   "train": out["train"]["delta_conv1"], "prep": out["prep"]["delta_conv1"]}
-    k2_launches = {"train": out["train"]["delta_conv1_bwd"],
-                   "prep": out["prep"]["delta_conv1_bwd"]}
+                   **{p: out[p]["delta_conv1"] for p in ("train", "prep", "e2e")}}
+    k2_launches = {p: out[p]["delta_conv1_bwd"] for p in ("train", "prep", "e2e")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "bound_3xtf32_ms", "bound_fp32_simt_ms")
     emit({"kernels": [{

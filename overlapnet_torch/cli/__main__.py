@@ -8,9 +8,10 @@ Commands (reference counterparts in parentheses):
   gen-gt     ground-truth overlap/yaw generation    (demo4_gen_gt_files.py)
   train      train from a network.yml               (training.py)
   pack       build per-sequence image packs         (no reference counterpart)
+  evaluate   overlap/yaw accuracy on a GT npz        (testing.py)
+  sim        synthetic KITTI-layout sequence        (no reference counterpart)
 
-Each runs on the card unless given ``--device cpu``. The JAX package's
-``evaluate`` and ``sim`` commands come with a later slice of the port.
+Each runs on the card unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -36,6 +37,10 @@ def main(argv: list[str] | None = None) -> int:
         from overlapnet_torch.cli.train import main as run
     elif cmd == "pack":
         from overlapnet_torch.cli.pack import main as run
+    elif cmd == "evaluate":
+        from overlapnet_torch.cli.evaluate import main as run
+    elif cmd == "sim":
+        from overlapnet_torch.cli.sim import main as run
     else:
         print(f"Unknown command: {cmd}\n{__doc__}")
         return 2

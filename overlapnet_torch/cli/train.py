@@ -18,13 +18,13 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 
 import numpy as np
 
 from overlapnet_torch.core.config import load_config
 from overlapnet_torch.core.metrics import MetricWriter, setup_logging
+from overlapnet_torch.core.profiling import trace
 from overlapnet_torch.data.dataset import PairImageDataset, ResidentPairs, unique_scans
 from overlapnet_torch.data.gt_files import load_gt_pairs
 from overlapnet_torch.data.pack import open_packs
@@ -47,23 +47,6 @@ def npz_selection(cfg) -> tuple[list[str], list[str]]:
         ]
         return train, val
     return [cfg.data.traindata_npzfile], [cfg.data.validationdata_npzfile]
-
-
-@contextlib.contextmanager
-def device_trace(profile_dir: str | None):
-    """torch.profiler over the block, written to ``profile_dir`` as a
-    chrome trace and a table of device time by kernel; nothing when unset."""
-    if not profile_dir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    os.makedirs(profile_dir, exist_ok=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-    with open(os.path.join(profile_dir, "key_averages.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
 
 
 def main(argv: list[str]) -> int:
@@ -173,7 +156,7 @@ def main(argv: list[str]) -> int:
 
     start_epoch = trainer.state.step // steps_per_epoch
     for epoch in range(start_epoch, cfg.train.no_epochs):
-        with device_trace(args.profile_dir if epoch == start_epoch else None):
+        with trace(args.profile_dir if epoch == start_epoch else None):
             if resident is not None:
                 metrics = trainer.run_epoch_resident(resident, cfg.train.batch_size, epoch)
             else:

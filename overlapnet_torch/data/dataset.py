@@ -17,7 +17,9 @@ package's ``data/dataset.py``:
   reference :42-53, 75-80, 209-212) is reproduced exactly, including the
   reference quirk that the yaw label is NOT adjusted for the shift;
 - ``ResidentPairs`` keeps the deduplicated scans on the device, so a step
-  ships only pair indices, shifts and labels.
+  ships only pair indices, shifts and labels;
+- ``FeatureVolumePairs`` batches pairs of leg embeddings that stay on the
+  device (evaluation scores every pair on cached embeddings).
 """
 
 from __future__ import annotations
@@ -346,6 +348,52 @@ class ResidentPairs:
                 "overlap": np.asarray(p.overlap[idx], np.float32),
                 "orientation": ds._adjusted_orientation(idx),
             }
+
+
+class FeatureVolumePairs:
+    """Pair batches over precomputed leg feature volumes — the descriptor-
+    reuse path of evaluation (reference
+    ImagePairOverlapSequenceFeatureVolume.py:9-47).
+
+    The volumes and the pair indices live on ``device`` ("cuda" by default;
+    raises if no card is visible), so a batch's rows are gathered there and
+    nothing but the labels crosses to or from the host. ``feature_volumes``
+    is a numpy array or a tensor (moved only if it lies elsewhere); batches
+    yield {fa, fb} (B, W', C) tensors on the device and, when given, overlap
+    and orientation as host arrays.
+    """
+
+    def __init__(
+        self,
+        feature_volumes,  # (N, W', C)
+        idx1: np.ndarray,
+        idx2: np.ndarray,
+        overlap: np.ndarray | None = None,
+        orientation: np.ndarray | None = None,
+        device="cuda",
+    ):
+        device = resolve_device(device)
+        self.fv = torch.as_tensor(feature_volumes, device=device)
+        self.idx1 = torch.as_tensor(np.asarray(idx1, np.int64), device=device)
+        self.idx2 = torch.as_tensor(np.asarray(idx2, np.int64), device=device)
+        self.overlap = overlap
+        self.orientation = orientation
+
+    def __len__(self) -> int:
+        return len(self.idx1)
+
+    def batches(self, batch_size: int) -> Iterator[dict]:
+        for s in range(0, len(self), batch_size):
+            sl = slice(s, s + batch_size)
+            batch = {
+                "fa": self.fv[self.idx1[sl]],
+                "fb": self.fv[self.idx2[sl]],
+            }
+            if self.overlap is not None:
+                batch["overlap"] = np.asarray(self.overlap[sl], np.float32)
+            if self.orientation is not None:
+                batch["orientation"] = np.asarray(self.orientation[sl], np.int32)
+            yield batch
 
 
 def unique_scans(pairs: PairList) -> tuple[list[tuple[str, str]], np.ndarray, np.ndarray]:

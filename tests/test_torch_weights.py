@@ -88,7 +88,9 @@ for new in ("lcd.gating", "lcd.online", "geometry.kitti", "cli.lcd",
             "data.dataset", "cli.train", "kernels.delta_conv1", "sim.world",
             "geometry.projection", "geometry.overlap", "geometry.gen_data",
             "geometry.rotations", "data.native", "data.pack", "data.balancing",
-            "cli.gen_data", "cli.gen_gt", "cli.pack"):
+            "cli.gen_data", "cli.gen_gt", "cli.pack", "backend", "backend.ate",
+            "backend.pose_graph", "core.profiling", "cli.evaluate", "cli.sim",
+            "sim.e2e", "sim.trainability_ab"):
     assert "overlapnet_torch." + new in names, new
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "optax", "orbax") or m.split(".")[0] in
