@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths (pair scoring, online loop closing),
-its training and data-preparation paths and its end-to-end harness (sim
-scans to pose graph) on one CUDA card.
+its training and data-preparation paths, its end-to-end harness (sim scans
+to pose graph) and its multi-device paths on one CUDA card.
 
 Run from the root of the repository:
 
@@ -132,9 +132,34 @@ Phases, each printing one JSON line:
    the card and on the CPU and a profiled one-iteration solve are printed as
    information, and the whole metrics dict.
 
+9. dist: the multi-device layer (``parallel/mesh.py`` over
+   torch.distributed). (a) One NCCL rank in this process, started by
+   ``maybe_initialize_distributed`` from the ``OVERLAPNET_*`` variables: ``cli
+   train`` at full width (5 steps of batch 16, each evaluated) on the mesh
+   path against ``--single-device`` (cuDNN deterministic): parameters, losses
+   and grad norms equal bit for bit, K1 once per step and evaluated batch
+   and K2 once per step; ``Infer(mesh=make_mesh(1))`` over phase lcd's
+   400-frame sequence under ``torch.cuda.set_sync_debug_mode("error")``,
+   K1 at least once per scored frame, closures equal to ``Infer(shards=1)``;
+   the 4,541-pose solve on the mesh equal to no mesh. (b) Two gloo ranks
+   sharing the card (NCCL refuses two ranks on one card), spawned as
+   ``python3 chip_smoke.py dist-rank <r> <dir>`` after the kernels are built:
+   data-parallel training with fp32 legs and TF32 off, 2 x 8 pairs against
+   one device at 16 (first step: loss within 1e-5 relative, every parameter
+   within rtol 1e-4 / atol 1e-6; parameters bit-equal across ranks; K1 once
+   per step and evaluated batch and K2 once per step on each rank); the
+   rank-sharded map over the 400 frames against one device with 2 shards
+   (the same frames and matches, overlaps within 1e-6, yaw within 1e-3
+   degrees); the edge-sharded 4,541-pose solve equal on both ranks, and in
+   float64 over 2 iterations of 20 CG steps within 1e-6 m of one device (the
+   float32 solve of 30 x 200 steps against one device is printed: it
+   amplifies the other order of the ranks' sums to centimetres). Step times of the default model
+   and frames/s are printed beside the one-device figures as information:
+   two ranks on one card measure the mechanism, not scaling.
+
 Then the ``kernels`` line (K1 and K2; launches are the sums over the model,
-lcd, train, prep and e2e phases' main-path runs), the nvidia-smi line, and
-last the result line.
+lcd, train, prep, e2e and dist phases' main-path runs), the nvidia-smi line,
+and last the result line.
 Any failure raises: the exit code is non-zero and no result line is printed.
 It also fails when no CUDA device is visible, and when run outside a
 checkout of the repository.
@@ -1555,10 +1580,438 @@ def phase_e2e(torch, k1, smi):
             "delta_conv1_bwd": harness["delta_conv1_bwd"]}
 
 
-PHASES = ("kernel", "kernel_bwd", "model", "lcd", "train", "prep", "e2e")
+# -- phase dist -----------------------------------------------------------------
+
+DIST_STEPS = 5         # resident steps of each data-parallel run
+DIST_TIMED_STEPS = 10  # default-model steps timed on two ranks and on one device
+DIST_RANKS = 2
+DIST_DEADLINE_S = 900  # for the two rank processes together
+PG_SHORT = dict(PG_SOLVE, iterations=2, cg_iters=20)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_train_yml(root: str, data: str, testname: str) -> str:
+    """``cli train`` at full width: DIST_STEPS epochs of one batch of 16 (the
+    16 pairs of ``write_train_set``), validated on the same 16 pairs."""
+    path = os.path.join(root, f"{testname}.yml")
+    with open(path, "w") as f:
+        json.dump({  # JSON is YAML
+            "data_root_folder": data, "experiments_path": os.path.join(root, "exp"),
+            "testname": testname, "training_seqs": "00", "batch_size": TRAIN_BATCH,
+            "no_epochs": DIST_STEPS, "no_batches_in_epoch": 1, "no_test_pairs": TRAIN_BATCH}, f)
+    return path
+
+
+def train_log(root: str, testname: str):
+    """(metrics.jsonl records without their clock readings, the last
+    checkpoint) of a ``cli train`` run."""
+    from overlapnet_torch.train.checkpoint import load_checkpoint
+
+    exp = os.path.join(root, "exp", testname)
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        records = [{k: v for k, v in json.loads(line).items()
+                    if k not in ("time", "train_pairs_per_sec", "sec_per_dispatch")} for line in f]
+    return records, load_checkpoint(os.path.join(exp, "checkpoints"))
+
+
+def dist_rank(rank: int, work: str) -> int:
+    """One rank of phase dist (b): gloo, the one card shared by both ranks.
+    Writes ``rank<r>.json`` and ``rank<r>.npz`` under ``work``; rank 0 also
+    runs every one-device reference in its process."""
+    import torch
+
+    from overlapnet_torch.core.config import OverlapNetConfig
+    from overlapnet_torch.core.distributed import maybe_initialize_distributed
+    from overlapnet_torch.data.dataset import PairImageDataset, ResidentPairs
+    from overlapnet_torch.data.gt_files import load_gt_pairs
+    from overlapnet_torch.kernels import delta_conv1 as k1
+    from overlapnet_torch.lcd.infer import Infer
+    from overlapnet_torch.lcd.online import OnlineLoopCloser
+    from overlapnet_torch.models import init_params, leg_output_width
+    from overlapnet_torch.backend import pose_graph
+    from overlapnet_torch.parallel.mesh import all_gather, barrier, make_mesh
+    from overlapnet_torch.train import trainer as trainer_mod
+
+    if not maybe_initialize_distributed(backend="gloo"):
+        raise RuntimeError("the OVERLAPNET_* variables did not start a process group")
+    mesh = make_mesh(device="cuda:0")  # NCCL takes one card a rank: two share it by gloo
+    out, arrays = {"rank": rank, "world": mesh.size}, {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+
+    cfg = OverlapNetConfig()
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, leg_dtype="float32"))
+    out_width = leg_output_width(cfg.model)
+    data = os.path.join(work, "train")
+    pairs = load_gt_pairs([os.path.join(data, "00", "ground_truth", "train_set.npz")],
+                          shuffle=False)
+    ds = PairImageDataset(data, pairs, cfg.channels, cfg.model.input_height,
+                          cfg.model.input_width, leg_output_width=out_width)
+
+    def train(config, device, m, steps=DIST_STEPS):
+        """``steps`` resident steps of batch TRAIN_BATCH (one an epoch);
+        returns (trainer, per-step metrics, parameters after step 1)."""
+        trainer = trainer_mod.Trainer(config, steps_per_epoch=1, device=device, mesh=m)
+        resident = ResidentPairs(ds, device=device, mesh=m)
+        metrics, first = [], None
+        for epoch in range(steps):
+            metrics.append(trainer.run_epoch_resident(resident, TRAIN_BATCH, epoch))
+            if first is None:
+                first = {k: v.detach().cpu().clone() for k, v in trainer.state.params.items()}
+        return trainer, metrics, first
+
+    # ---- data-parallel training, fp32 legs: the main path of this rank
+    train(cfg32, None, mesh, steps=1)  # warm-up: cuDNN plans, gloo pairs
+    torch.cuda.synchronize()
+    k1.delta_conv1.launches = k1.delta_conv1.backward_launches = 0
+    trainer, metrics, first = train(cfg32, None, mesh)
+    eval_dp = trainer.evaluate(ds.batches(TRAIN_BATCH))
+    torch.cuda.synchronize()
+    out["train_launches"] = {"delta_conv1": k1.delta_conv1.launches,
+                             "delta_conv1_bwd": k1.delta_conv1.backward_launches}
+    flat = torch.cat([v.reshape(-1) for v in trainer.state.params.values()])
+    gathered = all_gather(mesh, flat)
+    out["params_equal_across_ranks"] = bool(torch.equal(gathered[0], gathered[1]))
+    out["train_metrics"], out["eval"] = metrics, eval_dp
+    if rank == 0:  # one device at the global batch, in this process
+        ref, ref_metrics, ref_first = train(cfg32, "cuda:0", None)
+        out["ref_train_metrics"] = ref_metrics
+        out["ref_eval"] = ref.evaluate(ds.batches(TRAIN_BATCH))
+        for name, got, want in (("step1", first, ref_first),
+                                ("step5", trainer.state.params, ref.state.params)):
+            d = {k: (got[k].float().cpu() - want[k].float().cpu()).abs() for k in got}
+            out[f"params_{name}_max_abs"] = max(float(v.max()) for v in d.values())
+            out[f"params_{name}_beyond_tol"] = sum(
+                int((v > 1e-6 + 1e-4 * want[k].float().cpu().abs()).sum()) for k, v in d.items())
+        out["n_params"] = sum(v.numel() for v in first.values())
+        del ref
+    del trainer
+    barrier(mesh)
+
+    # ---- step time of the default model (bf16 legs, TF32 as PyTorch's
+    # defaults): two ranks at 8 pairs each on the shared card; one device
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+
+    def step_ms(device, m):
+        trainer = trainer_mod.Trainer(cfg, steps_per_epoch=1, device=device, mesh=m)
+        resident = ResidentPairs(ds, device=device, mesh=m)
+        for epoch in range(3):
+            trainer.run_epoch_resident(resident, TRAIN_BATCH, epoch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for epoch in range(3, 3 + DIST_TIMED_STEPS):
+            trainer.run_epoch_resident(resident, TRAIN_BATCH, epoch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / DIST_TIMED_STEPS
+
+    out["step_ms_two_ranks"] = step_ms(None, mesh)
+    barrier(mesh)
+    if rank == 0:
+        out["step_ms_one_device"] = step_ms("cuda:0", None)
+    barrier(mesh)
+
+    # ---- the rank-sharded map: online loop closing over the out-and-back
+    # sequence of phase lcd, every frame's best candidate kept (TF32 off: the
+    # ranks' head calls have other batch sizes than one device's)
+    torch.backends.cudnn.allow_tf32 = False
+    lcd = os.path.join(work, "lcd")
+    poses = np.load(os.path.join(lcd, "poses.npy"))
+    covs = np.load(os.path.join(lcd, "covs.npy"))
+    cfg.data.data_root_folder, cfg.data.infer_seqs = lcd, "00"
+    params = init_params(cfg.model, cfg.num_input_channels, seed=0)
+
+    def closer(**where):
+        infer = Infer(cfg, params=params, db_capacity=512, **where)
+        return OnlineLoopCloser(infer, poses, covariances=covs, overlap_threshold=-1.0)
+
+    closer(mesh=mesh).run(LCD_OUT + 8)  # warm-up
+    torch.cuda.synchronize()
+    barrier(mesh)
+    k1.delta_conv1.launches = 0
+    sharded = closer(mesh=mesh)
+    t0 = time.perf_counter()
+    sharded.run(pipeline_depth=8)
+    torch.cuda.synchronize()
+    out["lcd_s"] = time.perf_counter() - t0
+    out["lcd_launches"] = {"delta_conv1": k1.delta_conv1.launches}
+    arrays["closures"] = np.array([[c.frame, c.match, c.overlap, c.yaw_deg, c.confidence]
+                                   for c in sharded.closures], np.float64)
+    barrier(mesh)
+    if rank == 0:
+        one = closer(device="cuda:0", shards=DIST_RANKS)
+        t0 = time.perf_counter()
+        one.run(pipeline_depth=8)
+        torch.cuda.synchronize()
+        out["ref_lcd_s"] = time.perf_counter() - t0
+        arrays["ref_closures"] = np.array([[c.frame, c.match, c.overlap, c.yaw_deg, c.confidence]
+                                           for c in one.closures], np.float64)
+    barrier(mesh)
+
+    # ---- the edge-sharded pose graph at KITTI 00's length
+    gt, est, graph = loop_graph()
+    pose_graph.optimize_pose_graph(graph, est, mesh=mesh, **dict(PG_SOLVE, iterations=1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arrays["poses"], arrays["chi2"] = pose_graph.optimize_pose_graph(graph, est, mesh=mesh,
+                                                                     **PG_SOLVE)
+    out["solve_s"] = time.perf_counter() - t0
+    # the sums' order, held in float64 over a short solve: the float32 solve
+    # amplifies an ulp to centimetres
+    arrays["poses64"], _ = pose_graph.optimize_pose_graph(graph, est, mesh=mesh,
+                                                          dtype=torch.float64, **PG_SHORT)
+    barrier(mesh)
+    if rank == 0:
+        t0 = time.perf_counter()
+        arrays["ref_poses"], arrays["ref_chi2"] = pose_graph.optimize_pose_graph(
+            graph, est, device="cuda:0", **PG_SOLVE)
+        out["ref_solve_s"] = time.perf_counter() - t0
+        arrays["ref_poses64"], _ = pose_graph.optimize_pose_graph(
+            graph, est, device="cuda:0", dtype=torch.float64, **PG_SHORT)
+    barrier(mesh)
+    np.savez(os.path.join(work, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f, default=float)
+    return 0
+
+
+def phase_dist(torch, k1, smi):
+    """(a) one NCCL rank in this process; (b) two gloo ranks on the card."""
+    import torch.distributed as dist
+
+    from overlapnet_torch.backend import pose_graph
+    from overlapnet_torch.cli.__main__ import main as cli_main
+    from overlapnet_torch.core.config import OverlapNetConfig
+    from overlapnet_torch.core.distributed import maybe_initialize_distributed
+    from overlapnet_torch.data.gt_files import save_gt_files
+    from overlapnet_torch.lcd.infer import Infer
+    from overlapnet_torch.lcd.online import OnlineLoopCloser
+    from overlapnet_torch.models import init_params, leg_output_width
+    from overlapnet_torch.parallel.mesh import make_mesh
+
+    phase_t0 = time.perf_counter()
+    cfg = OverlapNetConfig()
+    out_width = leg_output_width(cfg.model)
+    launches = {"delta_conv1": 0, "delta_conv1_bwd": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "train")
+        table = write_train_set(data, cfg.model.input_height, cfg.model.input_width, out_width)
+        save_gt_files(os.path.join(data, "00", "ground_truth"), "00", table, table, table)
+        lcd = os.path.join(tmp, "lcd")
+        poses, covs, _ = write_loop(lcd, cfg.model.input_height, cfg.model.input_width)
+        np.save(os.path.join(lcd, "poses.npy"), poses)
+        np.save(os.path.join(lcd, "covs.npy"), covs)
+
+        # ---- (a) one NCCL rank: cli train on the mesh path and with
+        # --single-device, the same bits; Infer on a mesh of one
+        os.environ.update(OVERLAPNET_COORDINATOR=f"127.0.0.1:{free_port()}",
+                          OVERLAPNET_NUM_PROCESSES="1", OVERLAPNET_PROCESS_ID="0")
+        if not maybe_initialize_distributed():
+            raise RuntimeError("the OVERLAPNET_* variables did not start a process group")
+        try:
+            backend = str(dist.get_backend())
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.deterministic = True  # two runs, the same cuDNN algorithms
+            k1.delta_conv1.launches = k1.delta_conv1.backward_launches = 0
+            t0 = time.perf_counter()
+            if cli_main(["train", dist_train_yml(tmp, data, "mesh")]) != 0:
+                raise RuntimeError("cli train on a mesh of one rank failed")
+            mesh_train_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            train_launches = {"delta_conv1": k1.delta_conv1.launches,
+                              "delta_conv1_bwd": k1.delta_conv1.backward_launches}
+            if cli_main(["train", dist_train_yml(tmp, data, "single"), "--single-device"]) != 0:
+                raise RuntimeError("cli train --single-device failed")
+            torch.backends.cudnn.deterministic = False
+            (log_m, ck_m), (log_s, ck_s) = train_log(tmp, "mesh"), train_log(tmp, "single")
+            if not ck_m["step"] == ck_s["step"] == DIST_STEPS:
+                raise RuntimeError(f"checkpoint steps {ck_m['step']}, {ck_s['step']}")
+            differ = [k for k in ck_s["params"] if not torch.equal(ck_m["params"][k],
+                                                                   ck_s["params"][k])]
+            if differ or log_m != log_s:
+                d = max(float((ck_m["params"][k] - ck_s["params"][k]).abs().max())
+                        for k in ck_s["params"])
+                raise RuntimeError(f"a mesh of one NCCL rank differs from no mesh: {len(differ)} "
+                                   f"tensors, up to {d}; logs {log_m[-2:]} vs {log_s[-2:]}")
+            if train_launches != {"delta_conv1": 2 * DIST_STEPS, "delta_conv1_bwd": DIST_STEPS}:
+                raise RuntimeError(f"cli train on the mesh: launches {train_launches} for "
+                                   f"{DIST_STEPS} steps and {DIST_STEPS} evaluated batches")
+
+            mesh1 = make_mesh(1)
+            cfg.data.data_root_folder, cfg.data.infer_seqs = lcd, "00"
+            params = init_params(cfg.model, cfg.num_input_channels, seed=0)
+
+            def closer(**where):
+                infer = Infer(cfg, params=params, db_capacity=512, **where)
+                return OnlineLoopCloser(infer, poses, covariances=covs, overlap_threshold=-1.0)
+
+            closer(mesh=mesh1).run(LCD_OUT + 8)  # warm-up: NCCL's communicator, plans
+            torch.cuda.synchronize()
+            k1.delta_conv1.launches = 0
+            on_mesh = closer(mesh=mesh1)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                t0 = time.perf_counter()
+                on_mesh.run(pipeline_depth=8)
+                torch.cuda.synchronize()
+                mesh_lcd_s = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            lcd_launches = k1.delta_conv1.launches
+            scored = len(on_mesh.closures)
+            if lcd_launches < scored or scored < LCD_OUT // 2:
+                raise RuntimeError(f"{lcd_launches} K1 launches for {scored} scored frames")
+            one = closer(device="cuda", shards=1)
+            t0 = time.perf_counter()
+            one.run(pipeline_depth=8)
+            torch.cuda.synchronize()
+            one_lcd_s = time.perf_counter() - t0
+            if [dataclasses.astuple(c) for c in on_mesh.closures] != \
+                    [dataclasses.astuple(c) for c in one.closures]:
+                raise RuntimeError("Infer on a mesh of one rank differs from shards=1")
+
+            gt, est, graph = loop_graph()
+            got = pose_graph.optimize_pose_graph(graph, est, mesh=mesh1, **PG_SOLVE)
+            want = pose_graph.optimize_pose_graph(graph, est, device="cuda", **PG_SOLVE)
+            if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+                raise RuntimeError("the pose graph on a mesh of one rank differs from no mesh")
+        finally:
+            dist.destroy_process_group()
+            for k in ("OVERLAPNET_COORDINATOR", "OVERLAPNET_NUM_PROCESSES", "OVERLAPNET_PROCESS_ID"):
+                os.environ.pop(k)
+        for k, v in train_launches.items():
+            launches[k] += v
+        launches["delta_conv1"] += lcd_launches
+
+        # ---- (b) two gloo ranks on the one card (kernels built above)
+        env = {**os.environ, "OVERLAPNET_COORDINATOR": f"127.0.0.1:{free_port()}",
+               "OVERLAPNET_NUM_PROCESSES": str(DIST_RANKS)}
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(DIST_RANKS)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "dist-rank",
+                                   str(r), tmp], cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT,
+                                  env={**env, "OVERLAPNET_PROCESS_ID": str(r),
+                                       "PYTHONHASHSEED": str(r)})
+                 for r in range(DIST_RANKS)]
+        t0 = time.perf_counter()
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, DIST_DEADLINE_S - (time.perf_counter() - t0)))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if p.returncode != 0:
+                raise RuntimeError(f"rank {r} failed ({p.returncode}):\n{text[-6000:]}")
+        ranks = []
+        for r in range(DIST_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                info = json.load(f)
+            with np.load(os.path.join(tmp, f"rank{r}.npz")) as f:
+                info["arrays"] = dict(f)
+            ranks.append(info)
+        r0, r1 = ranks
+
+    # the gates of (b): every failure is listed in the line, then raised
+    failures = []
+    for info in ranks:
+        if not info["params_equal_across_ranks"]:
+            failures.append("two ranks' parameters differ after the data-parallel steps")
+        want = {"delta_conv1": DIST_STEPS + 1, "delta_conv1_bwd": DIST_STEPS}
+        if info["train_launches"] != want:
+            failures.append(f"rank {info['rank']}: launches {info['train_launches']}, want {want}")
+        if info["lcd_launches"]["delta_conv1"] < 1:
+            failures.append(f"rank {info['rank']} launched no K1 in the sharded map")
+        for k in ("delta_conv1", "delta_conv1_bwd"):
+            launches[k] += info["train_launches"][k] + info["lcd_launches"].get(k, 0)
+    got, want = r0["train_metrics"][0], r0["ref_train_metrics"][0]
+    d_loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    if d_loss > 1e-5:
+        failures.append(f"first step: two ranks' loss {got['loss']} vs one device {want['loss']}")
+    if r0["params_step1_beyond_tol"]:
+        failures.append(f"first step: {r0['params_step1_beyond_tol']} parameters beyond rtol "
+                        f"1e-4 / atol 1e-6 (largest |d| {r0['params_step1_max_abs']})")
+    losses = np.array([[m["loss"] for m in r0[k]] for k in ("train_metrics", "ref_train_metrics")])
+    for r in ranks[1:]:
+        if [(m["loss"], m["grad_norm"]) for m in r["train_metrics"]] != \
+                [(m["loss"], m["grad_norm"]) for m in r0["train_metrics"]]:
+            failures.append("the ranks logged different losses")
+    closures = [r["arrays"]["closures"] for r in ranks]
+    ref = r0["arrays"]["ref_closures"]
+    if not np.array_equal(closures[0], closures[1]):
+        failures.append("the ranks' loop closures differ")
+    same_rows = closures[0].shape == ref.shape
+    if not same_rows or not np.array_equal(closures[0][:, :2], ref[:, :2]):
+        failures.append("sharded map: frames or matches differ from one device's")
+    d_overlap, d_yaw = ((float(np.abs(closures[0][:, c] - ref[:, c]).max()) for c in (2, 3))
+                        if same_rows else (float("inf"),) * 2)
+    if d_overlap > 1e-6 or d_yaw > 1e-3:
+        failures.append(f"sharded map: overlap |d| {d_overlap}, yaw |d| {d_yaw} deg")
+    pg = [r["arrays"]["poses"] for r in ranks]
+    if not np.array_equal(pg[0], pg[1]):
+        failures.append("the ranks' pose-graph solves differ")
+    d_pose = float(np.abs(pg[0][:, :2] - r0["arrays"]["ref_poses"][:, :2]).max())
+    d_chi2 = float(np.max(np.abs(r0["arrays"]["chi2"] / r0["arrays"]["ref_chi2"] - 1)))
+    d_pose64 = float(np.abs(r0["arrays"]["poses64"][:, :2] - r0["arrays"]["ref_poses64"][:, :2]).max())
+    if d_pose64 > 1e-6:
+        failures.append(f"edge-sharded solve in float64: {d_pose64} m")
+
+    emit({
+        "phase": "dist", "config": "OverlapNetConfig() 64x900x4, W'=360, batch 16",
+        "one_nccl_rank": {
+            "backend": backend, "cli_train_launches": train_launches,
+            "cli_train_mesh_equals_single_device": "bit for bit (5 steps, cudnn.deterministic)",
+            "cli_train_s": mesh_train_s, "lcd_delta_conv1_launches": lcd_launches,
+            "lcd_scored_frames": scored, "sync_debug_mode": "error: nothing raised",
+            "lcd_frames_per_s_mesh1": 2 * LCD_OUT / mesh_lcd_s,
+            "lcd_frames_per_s_shards1": 2 * LCD_OUT / one_lcd_s,
+            "pose_graph_mesh1_equals_no_mesh": "bit for bit"},
+        "two_gloo_ranks_one_card": {
+            "train_fp32_legs_tf32_off": {
+                "loss_two_ranks": losses[0].tolist(), "loss_one_device": losses[1].tolist(),
+                "first_step_loss_rel_diff": d_loss,
+                "params_step1_max_abs_diff": r0["params_step1_max_abs"],
+                "params_step5_max_abs_diff": r0["params_step5_max_abs"],
+                "params_step5_beyond_rtol1e-4_atol1e-6": r0["params_step5_beyond_tol"],
+                "n_params": r0["n_params"], "params_equal_across_ranks": True,
+                "eval_two_ranks": r0["eval"], "eval_one_device": r0["ref_eval"]},
+            "launches_per_rank": [{**r["train_launches"], "lcd_delta_conv1":
+                                   r["lcd_launches"]["delta_conv1"]} for r in ranks],
+            "step_ms_default_model": {"two_ranks_8_pairs_each": [r["step_ms_two_ranks"] for r in ranks],
+                                      "one_device_16_pairs": r0["step_ms_one_device"]},
+            "lcd": {"frames": 2 * LCD_OUT, "closures": len(ref), "overlap_absdiff": d_overlap,
+                    "yaw_absdiff_deg": d_yaw, "frames_per_s_two_ranks": 2 * LCD_OUT / r0["lcd_s"],
+                    "frames_per_s_one_device_shards2": 2 * LCD_OUT / r0["ref_lcd_s"]},
+            "pose_graph": {"poses": PG_POSES, "float32_max_abs_m": d_pose,
+                           "float32_chi2_rel": d_chi2, "float64_short_max_abs_m": d_pose64,
+                           "solve_s_two_ranks": r0["solve_s"], "solve_s_one_device": r0["ref_solve_s"]},
+            "note": "two ranks share one card: this measures the mechanism, not scaling"},
+        "failures": failures, "phase_s": time.perf_counter() - phase_t0, "card": smi,
+    })
+    if failures:
+        raise RuntimeError("phase dist: " + "; ".join(failures))
+    return launches
+
+
+PHASES = ("kernel", "kernel_bwd", "model", "lcd", "train", "prep", "e2e", "dist")
 
 
 def main(argv: list[str]) -> int:
+    if argv[:1] == ["dist-rank"]:  # a rank process of phase dist
+        return dist_rank(int(argv[1]), argv[2])
     import torch
 
     only = [a for a in argv if a in PHASES]
@@ -1581,6 +2034,7 @@ def main(argv: list[str]) -> int:
         "train": lambda: phase_train(torch, k1, smi),
         "prep": lambda: phase_prep(torch, k1, smi),
         "e2e": lambda: phase_e2e(torch, k1, smi),
+        "dist": lambda: phase_dist(torch, k1, smi),
     }
     out = {phase: run[phase]() for phase in PHASES if not only or phase in only}
     if only:  # a part of the run, for development: no result line
@@ -1588,8 +2042,8 @@ def main(argv: list[str]) -> int:
         return 0
     fwd, bwd = out["kernel"], out["kernel_bwd"]
     k1_launches = {"model": out["model"], "lcd": out["lcd"],
-                   **{p: out[p]["delta_conv1"] for p in ("train", "prep", "e2e")}}
-    k2_launches = {p: out[p]["delta_conv1_bwd"] for p in ("train", "prep", "e2e")}
+                   **{p: out[p]["delta_conv1"] for p in ("train", "prep", "e2e", "dist")}}
+    k2_launches = {p: out[p]["delta_conv1_bwd"] for p in ("train", "prep", "e2e", "dist")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "bound_3xtf32_ms", "bound_fp32_simt_ms")
     emit({"kernels": [{

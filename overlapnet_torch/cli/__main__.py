@@ -11,7 +11,10 @@ Commands (reference counterparts in parentheses):
   evaluate   overlap/yaw accuracy on a GT npz        (testing.py)
   sim        synthetic KITTI-layout sequence        (no reference counterpart)
 
-Each runs on the card unless given ``--device cpu``.
+Each runs on the card unless given ``--device cpu``. With the
+``OVERLAPNET_*`` variables set (``core/distributed.py``) the process first
+joins its process group: ``train`` and ``lcd`` then run over a mesh of the
+ranks, one card per rank.
 """
 
 from __future__ import annotations
@@ -44,7 +47,17 @@ def main(argv: list[str] | None = None) -> int:
     else:
         print(f"Unknown command: {cmd}\n{__doc__}")
         return 2
-    return run(rest) or 0
+    import torch.distributed as dist
+
+    from overlapnet_torch.core.distributed import maybe_initialize_distributed
+
+    # no-op unless OVERLAPNET_COORDINATOR is set; before any mesh is made
+    started = not dist.is_initialized() and maybe_initialize_distributed()
+    try:
+        return run(rest) or 0
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

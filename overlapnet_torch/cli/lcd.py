@@ -6,10 +6,17 @@ closures and writes them to ``loop_closures.npz`` (frame, match, overlap,
 yaw_deg) — the input of the pose-graph backend. Pass --plot to also save a
 trajectory figure with closure markers.
 
+The descriptor map is sharded over a mesh of ranks (``--mesh N``, 0 = every
+rank the ``OVERLAPNET_*`` variables started; one process is a mesh of one):
+every rank embeds each frame and scores its own rows, and the ranks' best
+rows are merged. Ranks past N sit out. Rank 0 prints the closures and writes
+the outputs and the session.
+
 Usage:
   python -m overlapnet_torch.cli lcd <demo.yml>   (Demo3 block)
       [--frames N] [--out loop_closures.npz] [--plot traj.png]
-      [--animate run.gif] [--session session.npz] [--device cuda|cpu]
+      [--animate run.gif] [--session session.npz] [--mesh N] [--no-mesh]
+      [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -21,9 +28,11 @@ import numpy as np
 import yaml
 
 from overlapnet_torch.core.config import load_config
+from overlapnet_torch.core.distributed import world
 from overlapnet_torch.geometry import kitti
 from overlapnet_torch.lcd.infer import Infer
 from overlapnet_torch.lcd.online import OnlineLoopCloser
+from overlapnet_torch.parallel.mesh import is_writer, make_mesh
 
 
 def main(argv: list[str]) -> int:
@@ -45,10 +54,9 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--checkpoint-every", type=int, default=100)
     ap.add_argument(
         "--mesh", type=int, default=0, metavar="N",
-        help="shard the descriptor map over N devices; 0 and 1 both mean "
-             "one shard on the one device (more come with the port's "
-             "multi-GPU slice). Serving runs the fused non-blocking frame "
-             "step on the sharded store",
+        help="shard the descriptor map over a mesh of the first N ranks "
+             "(0 = all ranks; one card per rank); serving runs the fused "
+             "non-blocking frame step on the sharded store",
     )
     ap.add_argument(
         "--no-mesh", action="store_true",
@@ -57,11 +65,15 @@ def main(argv: list[str]) -> int:
     )
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh > 1:
-        ap.error(
-            f"--mesh {args.mesh}: a descriptor map sharded over several "
-            "devices comes with the port's multi-GPU slice; use --mesh 1"
-        )
+    n_ranks = world()[1]
+    if args.mesh > n_ranks:
+        ap.error(f"--mesh {args.mesh}: the world has {n_ranks} rank(s); start one "
+                 "process per rank with the OVERLAPNET_* variables")
+    mesh = None
+    if not args.no_mesh:
+        mesh = make_mesh(args.mesh or n_ranks, device=args.device)
+        if not mesh.member:
+            return 0  # this rank is past the mesh: it sits out
 
     with open(args.config) as f:
         d3 = (yaml.safe_load(f) or {}).get("Demo3", {})
@@ -76,14 +88,13 @@ def main(argv: list[str]) -> int:
     covs = kitti.load_covariances(d3["covariance_file"])
 
     n = args.frames if args.frames is not None else len(poses)
-    infer = Infer(
-        net_cfg, db_capacity=max(16, n), device=args.device,
-        shards=None if args.no_mesh else 1,
-    )
+    infer = Infer(net_cfg, db_capacity=max(16, n),
+                  device=args.device if mesh is None else None, mesh=mesh)
+    say = print if is_writer(mesh) else (lambda *a, **k: None)
     closer = OnlineLoopCloser(infer, poses[:n], covariances=covs[:n])
     if args.session and os.path.exists(args.session):
         start = closer.resume(args.session)
-        print(f"resumed session at frame {start} ({len(closer.closures)} closures)")
+        say(f"resumed session at frame {start} ({len(closer.closures)} closures)")
     # pipelined frame windows (closer.run keeps frames in flight on the
     # device); checkpoints land at window boundaries
     printed = 0
@@ -91,7 +102,7 @@ def main(argv: list[str]) -> int:
         end = min(n, closer._next_frame + args.checkpoint_every)
         closer.run(end)
         for closure in closer.closures[printed:]:
-            print(
+            say(
                 f"frame {closure.frame:6d} -> {closure.match:6d}  "
                 f"overlap {closure.overlap:.3f}  yaw {closure.yaw_deg:+.0f} deg"
             )
@@ -102,6 +113,8 @@ def main(argv: list[str]) -> int:
         closer.save_checkpoint(args.session)
 
     closures = closer.closures
+    if not is_writer(mesh):
+        return 0
     np.savez(
         args.out,
         frame=np.array([c.frame for c in closures]),

@@ -5,11 +5,22 @@ Equivalent of reference src/two_heads/training.py:96-420: GT npz selection
 or explicit traindata/validationdata npz files), per-epoch training with the
 reference's LR schedule/losses, per-epoch validation metrics (overlap
 mean/max/RMS, yaw RMS at overlap thresholds), a checkpoint and a flat-key
-``params.npz`` per epoch, and jsonl metric logs. One device.
+``params.npz`` per epoch, and jsonl metric logs.
+
+Training is data-parallel over a mesh of the ranks that the ``OVERLAPNET_*``
+variables started (``core/distributed.py``; one process per card), as the
+JAX CLI's is over its devices: the mesh takes the largest rank count that
+divides ``batch_size``. Ranks past it cannot sit out of the process group's
+collectives, so a world that count does not fill is an argument error that
+names the count to launch. Rank 0 writes the checkpoints, weights and logs;
+the other ranks wait for it at a barrier and read the checkpoints on
+``--resume``. One process with no such variables is a mesh of one rank.
+``--single-device`` trains with no mesh.
 
 Usage:
   python -m overlapnet_torch.cli train <network.yml> [--pack-dir PACKS]
-      [--resume] [--no-resident] [--device cuda|cpu] [--profile-dir DIR]
+      [--resume] [--no-resident] [--single-device] [--device cuda|cpu]
+      [--profile-dir DIR]
 
 ``--pack-dir`` reads the scans of every sequence that has a pack there
 (``cli pack``) from it; the others from their per-image files.
@@ -23,11 +34,13 @@ import os
 import numpy as np
 
 from overlapnet_torch.core.config import load_config
+from overlapnet_torch.core.distributed import world
 from overlapnet_torch.core.metrics import MetricWriter, setup_logging
 from overlapnet_torch.core.profiling import trace
 from overlapnet_torch.data.dataset import PairImageDataset, ResidentPairs, unique_scans
 from overlapnet_torch.data.gt_files import load_gt_pairs
 from overlapnet_torch.data.pack import open_packs
+from overlapnet_torch.parallel.mesh import barrier, is_writer, make_mesh
 
 # the deduplicated scan set goes to the device when it is smaller than this
 RESIDENT_LIMIT_BYTES = 4e9
@@ -73,6 +86,8 @@ def main(argv: list[str]) -> int:
         help="disable the device-resident training store (stream host batches "
         "even when the deduplicated scan set fits in device memory)",
     )
+    ap.add_argument("--single-device", action="store_true",
+                    help="train on one device, with no mesh")
     args = ap.parse_args(argv)
 
     from overlapnet_torch.models import leg_output_width
@@ -85,9 +100,21 @@ def main(argv: list[str]) -> int:
     from overlapnet_torch.train.trainer import Trainer
 
     cfg = load_config(args.config)
+    if args.single_device:
+        mesh = None
+    else:
+        # the largest rank count that divides the batch (even DP sharding)
+        n_ranks = world()[1]
+        while n_ranks > 1 and cfg.train.batch_size % n_ranks:
+            n_ranks -= 1
+        if n_ranks != world()[1]:
+            ap.error(f"batch_size {cfg.train.batch_size} splits evenly over {n_ranks} "
+                     f"of the {world()[1]} ranks: launch {n_ranks}")
+        mesh = make_mesh(n_ranks, device=args.device)
     exp_dir = os.path.join(cfg.experiment.experiments_path, cfg.experiment.testname)
-    logger = setup_logging(exp_dir)
-    writer = MetricWriter(exp_dir, tensorboard=True if args.tensorboard else None)
+    logger = setup_logging(exp_dir if is_writer(mesh) else None)
+    writer = (MetricWriter(exp_dir, tensorboard=True if args.tensorboard else None)
+              if is_writer(mesh) else None)
     logger.info("Using configuration file %s", args.config)
 
     train_npz, val_npz = npz_selection(cfg)
@@ -124,7 +151,8 @@ def main(argv: list[str]) -> int:
     val_ds = PairImageDataset(cfg.data.image_root, val_pairs, **ds_kwargs)
 
     steps_per_epoch = max(1, n_train // cfg.train.batch_size)
-    trainer = Trainer(cfg, steps_per_epoch=steps_per_epoch, device=args.device)
+    trainer = Trainer(cfg, steps_per_epoch=steps_per_epoch,
+                      device=args.device if mesh is None else None, mesh=mesh)
 
     ckpt_dir = os.path.join(exp_dir, "checkpoints")
     if args.resume and latest_step(ckpt_dir) is not None:
@@ -143,7 +171,7 @@ def main(argv: list[str]) -> int:
             * cfg.channels.num_channels * 4
         )
         if footprint < RESIDENT_LIMIT_BYTES:
-            resident = ResidentPairs(train_ds, device=trainer.device)
+            resident = ResidentPairs(train_ds, device=trainer.device, mesh=mesh)
             logger.info(
                 "device-resident training store: %d scans, %.1f MB",
                 n_unique, footprint / 1e6,
@@ -163,26 +191,29 @@ def main(argv: list[str]) -> int:
                 metrics = trainer.run_epoch(
                     train_ds.batches(
                         cfg.train.batch_size, epoch=epoch, shuffle=True,
-                        drop_remainder=True, input_dtype=cfg.train.input_dtype,
+                        drop_remainder=True, input_dtype=cfg.train.input_dtype, mesh=mesh,
                     ),
                     epoch=epoch,
                 )
         logger.info("epoch %d: loss %.5f", epoch, metrics.get("epoch_loss", float("nan")))
         step = trainer.state.step
-        writer.write(step, {**metrics, "epoch": epoch}, phase="train")
-
-        save_checkpoint(ckpt_dir, trainer.state)
-        save_params_npz(os.path.join(exp_dir, "params.npz"), trainer.state.params)
+        if writer is not None:
+            writer.write(step, {**metrics, "epoch": epoch}, phase="train")
+            save_checkpoint(ckpt_dir, trainer.state)
+            save_params_npz(os.path.join(exp_dir, "params.npz"), trainer.state.params)
+        barrier(mesh)
 
         if n_val:
             val_metrics = trainer.evaluate(val_ds.batches(cfg.train.batch_size))
-            writer.write(step, {**val_metrics, "epoch": epoch}, phase="validation")
+            if writer is not None:
+                writer.write(step, {**val_metrics, "epoch": epoch}, phase="validation")
             logger.info(
                 "epoch %d validation: overlap RMS %.4f max %.4f",
                 epoch,
                 val_metrics.get("overlap_rms_error", float("nan")),
                 val_metrics.get("overlap_max_error", float("nan")),
             )
-    writer.close()
+    if writer is not None:
+        writer.close()
     logger.info("done; device %s, weights in %s", trainer.device, exp_dir)
     return 0

@@ -37,6 +37,7 @@ from overlapnet_torch.core.config import ChannelConfig
 from overlapnet_torch.core.device import resolve_device
 from overlapnet_torch.data import native
 from overlapnet_torch.data.gt_files import PairList
+from overlapnet_torch.parallel.mesh import all_gather, device_of
 
 if TYPE_CHECKING:
     from overlapnet_torch.data.pack import SequencePack
@@ -74,14 +75,19 @@ def assemble_scan_image(
     return out
 
 
-def epoch_order(n: int, epoch: int, shuffle: bool) -> np.ndarray:
+def epoch_order(n: int, epoch: int, shuffle: bool, mesh=None) -> np.ndarray:
     """Pair order of an epoch. The seed is the JAX package's expression, so
     both packages shuffle alike inside one process; Python salts ``hash`` of
     a tuple holding a str per process, so the order is not reproducible
-    across processes unless PYTHONHASHSEED is set."""
+    across processes unless PYTHONHASHSEED is set. On a ``mesh`` every rank
+    takes rank 0's seed (one gather per shuffled epoch, which waits for it),
+    so the ranks draw the same global batches whatever their salts."""
     order = np.arange(n)
     if shuffle:
-        np.random.default_rng(hash(("epoch", epoch)) % (2**32)).shuffle(order)
+        seed = hash(("epoch", epoch)) % (2**32)
+        if mesh is not None and mesh.group is not None:
+            seed = int(all_gather(mesh, torch.tensor(seed, device=mesh.device))[0])
+        np.random.default_rng(seed).shuffle(order)
     return order
 
 
@@ -227,6 +233,7 @@ class PairImageDataset:
         prefetch: int = 2,
         max_batches: int | None = None,
         input_dtype: str = "float32",
+        mesh=None,
     ) -> Iterator[dict]:
         """Yield batch dicts {x1, x2, overlap, orientation} (host numpy),
         assembled by a background thread.
@@ -234,12 +241,13 @@ class PairImageDataset:
         ``input_dtype='bfloat16'`` casts the image tensors on the host,
         which halves the host-to-device copy at about 3 significant digits
         of range precision; numpy has no bfloat16, so x1 and x2 are then
-        ``torch.bfloat16`` CPU tensors."""
+        ``torch.bfloat16`` CPU tensors. With a ``mesh`` every rank gets the
+        same global batches (``epoch_order``)."""
         if input_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"input_dtype {input_dtype!r} (float32|bfloat16)")
         if self.rotate_data == 2 and epoch > 0:
             self._shifts = self._draw_shifts()
-        order = epoch_order(len(self.pairs), epoch, shuffle)
+        order = epoch_order(len(self.pairs), epoch, shuffle, mesh)
         starts = batch_starts(len(order), batch_size, drop_remainder, max_batches)
 
         q: queue.Queue = queue.Queue(maxsize=prefetch)
@@ -304,14 +312,18 @@ class ResidentPairs:
     Augmentation/shuffle semantics match PairImageDataset exactly (same
     shift draws, same epoch shuffle streams), so the two paths are
     interchangeable. ``device`` is "cuda" by default and raises if no card
-    is visible.
+    is visible. With a ``mesh`` the store is replicated on every rank's
+    device; every rank draws the same global index batches (same seed, same
+    shifts) and the train step takes the rank's block of them.
     """
 
-    def __init__(self, ds: PairImageDataset, device="cuda", input_dtype: str = "float32"):
+    def __init__(self, ds: PairImageDataset, device=None, input_dtype: str = "float32",
+                 mesh=None):
         if input_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"input_dtype {input_dtype!r} (float32|bfloat16)")
-        device = resolve_device(device)
+        device = device_of(device, mesh)
         self._ds = ds
+        self._mesh = mesh
         scans, self.idx1, self.idx2 = unique_scans(ds.pairs)
         imgs = torch.from_numpy(np.stack([ds._cache.get(d, n) for d, n in scans]))
         if input_dtype == "bfloat16":
@@ -336,7 +348,7 @@ class ResidentPairs:
         ds = self._ds
         if ds.rotate_data == 2 and epoch > 0:
             ds._shifts = ds._draw_shifts()
-        order = epoch_order(len(ds.pairs), epoch, shuffle)
+        order = epoch_order(len(ds.pairs), epoch, shuffle, self._mesh)
         p = ds.pairs
         shifts = ds._shifts if ds.rotate_data > 0 else np.zeros(len(p), np.int32)
         for s in batch_starts(len(order), batch_size, drop_remainder, max_batches):

@@ -8,7 +8,8 @@ yaw confidence.
 ``ShardedDescriptorDB`` is the online loop closer's store: allocated at
 capacity, rows interleaved over shards, candidates chosen by a global-row
 mask, the best k reduced on the device, and a fused frame step (embed +
-insert + masked top-1) that never waits for the device.
+insert + masked top-1) that never waits for the device. Its shards live on
+one device, or one on each rank of a mesh.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from overlapnet_torch.core.device import resolve_device
 from overlapnet_torch.ops.correlation import subbin_peak, yaw_confidence
+from overlapnet_torch.parallel.mesh import Mesh, all_gather, device_of, save_npz
 
 # Pairs per head call: bounds the c_conv1 output (B x 360 x 24 x 64 fp32,
 # 566 MB at B = 256) however many candidates a query has.
@@ -184,12 +186,28 @@ def _packed_topk(scores: torch.Tensor, gids: torch.Tensor, k: int) -> torch.Tens
     return out
 
 
+def _merge_topk(gathered: torch.Tensor, k: int) -> torch.Tensor:
+    """The best ``k`` of every rank's packed top-k, (D, 4, k) -> (4, k). In
+    rank order a stable sort meets equal overlaps in store order (shard,
+    then slot), so the result is the one store's."""
+    cols = gathered.transpose(0, 1).reshape(4, -1)
+    return _packed_topk(torch.cat([cols[:1], cols[2:]]), cols[1], k)
+
+
 class ShardedDescriptorDB:
     """Descriptor DB with rows interleaved over ``shards``: global row ``i``
-    lives in shard ``i % D`` at slot ``i // D`` of one (D, slots, W', C)
-    float32 tensor, so the live prefix of the map is always balanced over the
-    shards. All shards live on the one device for now; a multi-device store
-    places shard d on rank d and keeps this layout and every result.
+    lives in shard ``i % D`` at slot ``i // D``, so the live prefix of the
+    map is always balanced over the shards. Without a mesh all D shards are
+    one (D, slots, W', C) float32 tensor on ``device``; with a ``mesh`` of D
+    ranks (the JAX store sharded on the device axis) rank d holds only shard
+    d, a (1, slots, W', C) tensor on its device.
+
+    On a mesh every rank makes the same calls with the same arguments, as
+    the JAX package's processes do: an added row is kept by the rank that
+    owns it, each rank scores its own masked live rows and takes its best k,
+    and the ranks' best rows are gathered (an all-reduce into a zero-filled
+    buffer) and merged. Results equal the one-device store's with D shards,
+    up to the rounding of the heads on other batch sizes.
 
     The store is allocated at capacity: growing it would move it under
     frames that are still in flight.
@@ -208,9 +226,11 @@ class ShardedDescriptorDB:
       capacity: maximum number of stored embeddings (rounded up to a
         multiple of ``shards``).
       width, channels: embedding shape (reference: 360, 128).
-      shards: number of row-interleaved shards D.
+      shards: number of row-interleaved shards D (1 by default; the mesh's
+        size with a mesh).
       device: where the store lives and the heads run ("cuda" by default;
-        raises if no card is visible).
+        raises if no card is visible); with a mesh, the rank's device.
+      mesh: a ``parallel.mesh.Mesh`` whose ranks hold one shard each.
     """
 
     def __init__(
@@ -219,19 +239,26 @@ class ShardedDescriptorDB:
         capacity: int = 8192,
         width: int = 360,
         channels: int = 128,
-        shards: int = 1,
-        device="cuda",
+        shards: int | None = None,
+        device=None,
+        mesh: Mesh | None = None,
     ):
-        if shards < 1:
+        d = int((1 if mesh is None else mesh.size) if shards is None else shards)
+        if d < 1:
             raise ValueError(f"shards must be >= 1, got {shards}")
+        if mesh is not None and d != mesh.size:
+            raise ValueError(f"{d} shards on a mesh of {mesh.size} ranks")
         self._head = head_apply
-        self._n_dev = d = int(shards)
+        self._mesh = mesh
+        self._n_dev = d
+        # the shards this process holds: all of them, or the rank's
+        self._first, n_local = (0, d) if mesh is None else (mesh.rank, 1)
         self._slots_cap = (capacity + d - 1) // d
         if self.capacity >= 2**24:
             # the frame step carries the row id in a float32
             raise ValueError(f"capacity {self.capacity} must be below 2**24 rows")
-        self.device = resolve_device(device)
-        self._fv = torch.zeros((d, self._slots_cap, width, channels), device=self.device)
+        self.device = device_of(device, mesh)
+        self._fv = torch.zeros((n_local, self._slots_cap, width, channels), device=self.device)
         self._n = 0
         self._leg_embed: Callable | None = None
 
@@ -251,8 +278,15 @@ class ShardedDescriptorDB:
         return min(b, self._slots_cap)
 
     def _flat(self, rows: np.ndarray) -> np.ndarray:
-        """Global rows -> row indices of the store viewed as (D * slots, W', C)."""
-        return (rows % self._n_dev) * self._slots_cap + rows // self._n_dev
+        """Global rows held here -> row indices of this process's store
+        viewed as (local shards * slots, W', C)."""
+        return (rows % self._n_dev - self._first) * self._slots_cap + rows // self._n_dev
+
+    def _held(self, rows: np.ndarray) -> np.ndarray:
+        """The global ``rows`` this process holds."""
+        if self._mesh is None:
+            return rows
+        return rows[rows % self._n_dev == self._first]
 
     def _upload(self, array: np.ndarray) -> torch.Tensor:
         """Host array -> tensor on the DB's device, without waiting for the
@@ -279,8 +313,13 @@ class ShardedDescriptorDB:
                 f"(W', C) = {tuple(self._fv.shape[2:])} — was this cache built "
                 "with a different input_width/model?"
             )
-        rows = torch.arange(self._n, self._n + k, device=self.device)
-        self._fv[rows % self._n_dev, rows // self._n_dev] = fv
+        if self._mesh is None:
+            rows = torch.arange(self._n, self._n + k, device=self.device)
+            self._fv[rows % self._n_dev, rows // self._n_dev] = fv
+        else:  # this rank keeps the rows it owns
+            mine = slice((self._first - self._n) % self._n_dev, k, self._n_dev)
+            slot0 = (self._n + mine.start) // self._n_dev
+            self._fv[0, slot0 : slot0 + len(range(k)[mine])] = fv[mine]
         first = self._n
         self._n += k
         return first
@@ -288,9 +327,13 @@ class ShardedDescriptorDB:
     @property
     def feature_volumes(self) -> np.ndarray:
         """Live embeddings in global row order (copied to the host: O(n);
-        serving hot paths stay on the device via query_topk)."""
+        serving hot paths stay on the device via query_topk). On a mesh the
+        ranks' shards are gathered first: every rank must ask."""
         slots = -(-self._n // self._n_dev)
-        live = self._fv[:, :slots].transpose(0, 1).reshape(-1, *self._fv.shape[2:])
+        shards = self._fv[:, :slots]
+        if self._mesh is not None:
+            shards = all_gather(self._mesh, shards[0])
+        live = shards.transpose(0, 1).reshape(-1, *self._fv.shape[2:])
         return live[: self._n].cpu().numpy()
 
     def load(self, fv) -> int:
@@ -306,24 +349,29 @@ class ShardedDescriptorDB:
 
     def save(self, path: str) -> None:
         """Persist the live embeddings in global row order to ``path`` (.npz),
-        the format both DBs of the JAX package write and read."""
-        np.savez_compressed(path, feature_volumes=self.feature_volumes)
+        the format both DBs of the JAX package write and read. On a mesh
+        rank 0 writes and every rank returns once the file is there."""
+        save_npz(self._mesh, path, feature_volumes=self.feature_volumes)
 
     def restore(self, path: str) -> int:
-        """Load embeddings saved by :meth:`save` (re-interleaved on insert)."""
+        """Load embeddings saved by :meth:`save` (re-interleaved on insert;
+        on a mesh every rank reads the file and keeps its rows)."""
         with np.load(path) as data:
             return self.load(data["feature_volumes"])
 
     # -- queries -------------------------------------------------------------
 
-    def _candidate_rows(self, candidate_mask) -> np.ndarray:
+    def _live_rows(self, candidate_mask) -> np.ndarray:
         """Live global rows a (capacity,)-or-shorter bool mask selects (all
-        live rows for None), in store order: shard-major, which is the order
-        in which equal overlaps are ranked."""
+        live rows for None)."""
         if candidate_mask is None:
-            rows = np.arange(self._n, dtype=np.int64)
-        else:
-            rows = np.flatnonzero(np.asarray(candidate_mask, bool)[: self._n])
+            return np.arange(self._n, dtype=np.int64)
+        return np.flatnonzero(np.asarray(candidate_mask, bool)[: self._n])
+
+    def _candidate_rows(self, candidate_mask) -> np.ndarray:
+        """The live masked rows held here, in store order: shard-major, which
+        is the order in which equal overlaps are ranked."""
+        rows = self._held(self._live_rows(candidate_mask))
         return rows[np.argsort(self._flat(rows), kind="stable")]
 
     def _score_rows(self, query: torch.Tensor, rows: np.ndarray):
@@ -375,7 +423,11 @@ class ShardedDescriptorDB:
         packed = torch.stack([
             _packed_topk(*self._score_rows(q, self._candidate_rows(m)), k)
             for q, m in zip(queries, self._masks(candidate_mask, queries.shape[0]))
-        ]).cpu().numpy()  # (Q, 4, k)
+        ])  # (Q, 4, k)
+        if self._mesh is not None:
+            gathered = all_gather(self._mesh, packed)  # (D, Q, 4, k)
+            packed = torch.stack([_merge_topk(gathered[:, i], k) for i in range(len(packed))])
+        packed = packed.cpu().numpy()
         return (packed[:, 0], packed[:, 1].astype(np.int32), packed[:, 2],
                 packed[:, 3])
 
@@ -402,8 +454,15 @@ class ShardedDescriptorDB:
         confidence 0."""
         query_fv = torch.as_tensor(query_fv, dtype=torch.float32, device=self.device)
         rows = self._candidate_rows(candidate_mask)
-        scores, _ = self._score_rows(query_fv, rows)
-        scores = scores.cpu().numpy()
+        scores, idx = self._score_rows(query_fv, rows)
+        if self._mesh is None:
+            scores = scores.cpu().numpy()
+        else:  # the ranks' (3, capacity) tables; each row read from its owner's
+            table = scores.new_zeros((3, self.capacity))
+            table[:, idx] = scores
+            tables = all_gather(self._mesh, table).cpu().numpy()
+            rows = self._live_rows(candidate_mask)
+            scores = tables[rows % self._n_dev, :, rows].T
         overlap = np.full(self.capacity, -1.0, np.float32)
         yaw = np.zeros(self.capacity, np.float32)
         conf = np.zeros(self.capacity, np.float32)
@@ -430,6 +489,12 @@ class ShardedDescriptorDB:
         only after ``event.synchronize()``. On the CPU the step has run by
         the time it returns and ``event`` is None. The candidate mask indexes
         GLOBAL rows and cannot select the new row.
+
+        On a mesh every rank embeds the image (the leg is replicated, as in
+        the JAX step) and only the owning rank stores the row. Every rank
+        takes part in the gather of the ranks' best rows on every frame, also
+        with no candidate of its own (it offers overlap -1), so no rank waits
+        on the host; on NCCL the collective is enqueued on the stream.
         """
         if self._leg_embed is None:
             raise RuntimeError("frame_step needs set_embedder() first")
@@ -438,12 +503,19 @@ class ShardedDescriptorDB:
             raise ValueError("ShardedDescriptorDB capacity exceeded")
         rows = self._candidate_rows(candidate_mask)
         fv = self._leg_embed(self._upload(np.asarray(image, np.float32))[None])[0]
-        self._fv[row % self._n_dev, row // self._n_dev] = fv
+        if len(self._held(np.array([row]))):
+            self._fv[row % self._n_dev - self._first, row // self._n_dev] = fv
         self._n += 1
         if len(rows):
-            best = _packed_topk(*self._score_rows(fv, rows), 1)[:, 0]
-        else:  # nothing to score: the answer is known on the host
-            best = torch.tensor([-1.0, 0.0, 0.0, 0.0])
+            best = _packed_topk(*self._score_rows(fv, rows), 1)
+        elif self._mesh is None:  # nothing to score: the answer is known on the host
+            best = torch.tensor([[-1.0], [0.0], [0.0], [0.0]])
+        else:  # no candidate here; a device tensor for the gather
+            best = self._fv.new_zeros((4, 1))
+            best[0] = -1.0
+        if self._mesh is not None:
+            best = _merge_topk(all_gather(self._mesh, best), 1)
+        best = best[:, 0]
         if best.device.type != "cuda":
             return row, (best, None)
         packed = torch.empty(4, dtype=torch.float32, pin_memory=True)

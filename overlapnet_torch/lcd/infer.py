@@ -1,4 +1,4 @@
-"""Inference engine / serving API on one device.
+"""Inference engine / serving API, on one device or over a mesh of ranks.
 
 API-parity re-design of the reference ``Infer`` class (reference
 src/two_heads/infer.py:22-265): leg/head factorization with an incremental
@@ -6,7 +6,8 @@ embedding cache, the three entry points (``infer_one``, ``infer_multiple``,
 ``infer_multiple_vs_multiple``), ``create_feature_volumes``, ``query_best``
 and ``dispatch_frame``. The embedding cache is a ``DescriptorDB`` on the
 serving device or, with ``shards``, a ``ShardedDescriptorDB`` whose fused
-frame step makes ``dispatch_frame`` non-blocking. Weights load from the
+frame step makes ``dispatch_frame`` non-blocking; with ``mesh`` that store
+holds one shard on each rank. Weights load from the
 flat-key .npz export (``weights.py``), a reference Keras HDF5 file
 (``train/import_keras.py``) or a checkpoint directory of this package's
 trainer (``train/checkpoint.py``).
@@ -21,11 +22,11 @@ import numpy as np
 import torch
 
 from overlapnet_torch.core.config import OverlapNetConfig
-from overlapnet_torch.core.device import resolve_device
 from overlapnet_torch.data.dataset import assemble_scan_image
 from overlapnet_torch.lcd.descriptor_db import DescriptorDB, ShardedDescriptorDB
 from overlapnet_torch.models import build_model, leg_output_width
 from overlapnet_torch.ops.yaw import peak_to_degrees
+from overlapnet_torch.parallel.mesh import Mesh, device_of, save_npz
 from overlapnet_torch.weights import load_npz
 
 # Scans per leg call in create_feature_volumes.
@@ -82,11 +83,14 @@ class Infer:
         package), or a seeded fresh init when that names no file.
       db_capacity: maximum number of cached embeddings.
       device: where the model and the embedding cache live ("cuda" by
-        default; raises if no card is visible).
+        default; raises if no card is visible); with a mesh, the rank's.
       shards: None keeps the map in a ``DescriptorDB``; a number keeps it in
         a ``ShardedDescriptorDB`` with that many row-interleaved shards (all
         on ``device``), which reduces top-k on the device and makes
         ``dispatch_frame`` the fused non-blocking frame step.
+      mesh: keeps the map in a ``ShardedDescriptorDB`` with one shard on
+        each rank of this ``parallel.mesh.Mesh`` (the JAX ``Infer(mesh=)``).
+        Every rank then makes the same calls; the model is replicated.
     """
 
     def __init__(
@@ -94,12 +98,16 @@ class Infer:
         cfg: OverlapNetConfig,
         params: Mapping[str, torch.Tensor] | None = None,
         db_capacity: int = 8192,
-        device="cuda",
+        device=None,
         shards: int | None = None,
+        mesh: Mesh | None = None,
     ):
+        if mesh is not None and shards is not None:
+            raise ValueError("shards= is the one-device store; a mesh sets its own")
         self.cfg = cfg
-        self.shards = shards
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.shards = shards if mesh is None else mesh.size
+        self.device = device_of(device, mesh)
         self.output_size = leg_output_width(cfg.model)
         self.model = build_model(cfg.model, cfg.num_input_channels, device=self.device)
         self.model.load_state_dict(params if params is not None else self._load_params())
@@ -108,10 +116,10 @@ class Infer:
             capacity=db_capacity, width=self.output_size,
             channels=self.model.legs.out_channels, device=self.device,
         )
-        if shards is None:
+        if self.shards is None:
             self._db = DescriptorDB(self.model.score, **store)
         else:
-            self._db = ShardedDescriptorDB(self.model.score, shards=shards, **store)
+            self._db = ShardedDescriptorDB(self.model.score, shards=shards, mesh=mesh, **store)
             self._db.set_embedder(self.model.encode)
         # frame-id -> db row; infer_multiple appends one embedding per call
         # so ids stay aligned like the reference's list (infer.py:184-185).
@@ -305,16 +313,14 @@ class Infer:
 
     # -- serving-session checkpoint ---------------------------------------
 
-    def save_cache(self, path: str) -> None:
+    def save_cache(self, path: str, **extra: np.ndarray) -> None:
         """Persist the embedding cache + frame-id mapping (.npz), in the
-        JAX package's format."""
+        JAX package's format, with ``extra`` arrays beside them. On a mesh
+        every rank calls it; rank 0 writes and every rank returns once the
+        file is there."""
         ids = np.array(sorted(self._frame_rows), np.int64)
-        np.savez_compressed(
-            path,
-            feature_volumes=self._db.feature_volumes,
-            frame_ids=ids,
-            frame_rows=self._rows_of(ids),
-        )
+        save_npz(self.mesh, path, feature_volumes=self._db.feature_volumes,
+                 frame_ids=ids, frame_rows=self._rows_of(ids), **extra)
 
     def restore_cache(self, path: str) -> int:
         """Load a cache saved by :meth:`save_cache`; returns #embeddings."""

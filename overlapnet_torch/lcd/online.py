@@ -199,13 +199,7 @@ class OnlineLoopCloser:
              for c in self.closures],
             np.float64,
         ).reshape(-1, 5)
-        self.infer.save_cache(path)
-        # np.savez can't append; write session metadata alongside the cache.
-        with np.load(path) as data:
-            arrays = dict(data)
-        arrays["next_frame"] = np.int64(self._next_frame)
-        arrays["closures"] = closures
-        np.savez_compressed(path, **arrays)
+        self.infer.save_cache(path, next_frame=np.int64(self._next_frame), closures=closures)
 
     def resume(self, path: str) -> int:
         """Restore state saved by :meth:`save_checkpoint`; returns the next

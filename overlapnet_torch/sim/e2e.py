@@ -171,9 +171,22 @@ def make_config(work_dir: str, model_overrides: dict | None = None, device="cuda
     return cfg
 
 
+def _writer_first(mesh, fn):
+    """``fn()`` on the writing rank first; the other ranks call it once its
+    files are there, and reuse them (the stamps match)."""
+    from overlapnet_torch.parallel.mesh import barrier, is_writer
+
+    if is_writer(mesh):
+        out = fn()
+        barrier(mesh)
+        return out
+    barrier(mesh)
+    return fn()
+
+
 def train_and_eval(
     cfg, gt_paths: dict, time_budget_s: float = 0.0, work_dir: str | None = None,
-    device="cuda",
+    device=None, mesh=None,
 ) -> dict | None:
     """Train on the synthetic GT; returns metrics incl. the untrained
     baseline (proof the accuracy comes from learning, not the harness).
@@ -182,8 +195,13 @@ def train_and_eval(
     checkpoint (``step_<n>.pt``: params, optimizer state, step) and
     ``train_partial.json`` after every epoch under ``work_dir``, and returns
     None once the budget is spent; a rerun of the same call resumes exactly
-    where it stopped."""
+    where it stopped.
+
+    With a ``mesh`` training and evaluation are data-parallel over its
+    ranks (``device`` must be the rank's); rank 0 writes the checkpoints and
+    every rank returns the same results."""
     from overlapnet_torch.data import load_gt_pairs
+    from overlapnet_torch.parallel.mesh import barrier, is_writer
     from overlapnet_torch.data.dataset import PairImageDataset, ResidentPairs
     from overlapnet_torch.models import leg_output_width
     from overlapnet_torch.train.trainer import Trainer
@@ -209,7 +227,7 @@ def train_and_eval(
     val_ds = PairImageDataset(cfg.data.image_root, val_pairs, **ds_kwargs)
 
     steps_per_epoch = max(1, len(pairs) // cfg.train.batch_size)
-    trainer = Trainer(cfg, steps_per_epoch=steps_per_epoch, device=device)
+    trainer = Trainer(cfg, steps_per_epoch=steps_per_epoch, device=device, mesh=mesh)
 
     def val_batches():
         return val_ds.batches(cfg.train.batch_size)
@@ -239,18 +257,20 @@ def train_and_eval(
 
     # device-resident training: scan images live on the device once (float32,
     # as the JAX harness keeps them); steps ship only indices
-    resident = ResidentPairs(train_ds, device=trainer.device)
+    resident = ResidentPairs(train_ds, device=trainer.device, mesh=mesh)
     for epoch in range(start_epoch, cfg.train.no_epochs):
         m = trainer.run_epoch_resident(resident, cfg.train.batch_size, epoch)
         print(f"epoch {epoch}: loss {m.get('epoch_loss', float('nan')):.4f} "
               f"({m.get('train_pairs_per_sec', 0):.1f} pairs/s)", flush=True)
         results[f"epoch{epoch}_loss"] = m.get("epoch_loss")
         if ckpt_dir is not None:
-            save_checkpoint(ckpt_dir, trainer.state)
-            with open(side_path, "w") as f:
-                json.dump({k: v for k, v in results.items()
-                           if not isinstance(v, dict)}
-                          | {"untrained": results["untrained"]}, f)
+            if is_writer(mesh):
+                save_checkpoint(ckpt_dir, trainer.state)
+                with open(side_path, "w") as f:
+                    json.dump({k: v for k, v in results.items()
+                               if not isinstance(v, dict)}
+                              | {"untrained": results["untrained"]}, f)
+            barrier(mesh)
             if (time.perf_counter() - t_start) > time_budget_s:
                 print(f"time budget spent after epoch {epoch}; "
                       "rerun to resume", flush=True)
@@ -420,30 +440,40 @@ def run_e2e(
     model_overrides: dict | None = None,
     query_stride: int = 1,
     time_budget_s: float = 0.0,
-    device="cuda",
+    device=None,
+    mesh=None,
     **train_overrides,
 ) -> dict | None:
-    """The full pipeline on ``device``; returns a flat metrics dict (see the
-    module docstring). With ``time_budget_s`` > 0, returns None when the
-    training budget ran out mid-way — rerun the same call to resume from the
-    epoch checkpoint."""
+    """The full pipeline on ``device`` ("cuda" by default); returns a flat
+    metrics dict (see the module docstring). With ``time_budget_s`` > 0,
+    returns None when the training budget ran out mid-way — rerun the same
+    call to resume from the epoch checkpoint.
+
+    With a ``mesh`` (every rank calls): rank 0 makes the sequence and the
+    GT and the others reuse them, training is data-parallel over the mesh,
+    and every rank serves and solves the pose graph on its own device (the
+    JAX harness serves on a one-device mesh); rank 0 writes the files."""
     from overlapnet_torch.models import leg_output_width
+    from overlapnet_torch.parallel.mesh import device_of, is_writer
     from overlapnet_torch.train.checkpoint import save_params_npz
 
+    device = device_of(device, mesh)
     os.makedirs(work_dir, exist_ok=True)
-    files, poses = generate_sequence(work_dir, n_frames, seed=seed, device=device)
+    files, poses = _writer_first(
+        mesh, lambda: generate_sequence(work_dir, n_frames, seed=seed, device=device))
     cfg = make_config(
         work_dir, model_overrides, device=device,
         batch_size=batch_size, no_epochs=epochs, seed=seed,
         **train_overrides,
     )
-    gt_paths = build_gt(
+    gt_paths = _writer_first(mesh, lambda: build_gt(
         work_dir, files, poses,
         leg_output_width=leg_output_width(cfg.model),
         query_stride=query_stride, seed=seed, device=device,
-    )
+    ))
     train_results = train_and_eval(
         cfg, gt_paths, time_budget_s=time_budget_s, work_dir=work_dir, device=device,
+        mesh=mesh,
     )
     if train_results is None:
         return None
@@ -451,7 +481,8 @@ def run_e2e(
     # save the trained params right away: the LCD/backend phases can then be
     # rerun standalone (run_lcd/run_pose_graph) without repeating the
     # training if anything downstream is interrupted
-    save_params_npz(os.path.join(work_dir, "trained_params.npz"), params)
+    if is_writer(mesh):
+        save_params_npz(os.path.join(work_dir, "trained_params.npz"), params)
     lcd = run_lcd(cfg, params, poses, gt_paths["gt_table"],
                   covariance_file=files["covariance_file"], device=device)
     closures = lcd.pop("closures")

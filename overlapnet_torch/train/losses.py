@@ -11,6 +11,13 @@ Exact functional equivalents of the reference's two losses
   zero except target[yaw_bin] = overlap, binarized at
   min_overlap_for_angle (training.py:42-43, 86-92;
   ImagePairOverlapOrientationSequence.py:118-123).
+
+On a mesh of several ranks (``combined_loss(mesh=...)``) each rank forms its
+share of the GLOBAL batch's loss, as the JAX package's loss is under GSPMD:
+every mean over the batch becomes the local sum over the global batch size,
+and the masked orientation mean divides by the count of unmasked pairs over
+all ranks. The shares, and their gradients, sum over the ranks to the global
+batch's.
 """
 
 from __future__ import annotations
@@ -18,16 +25,23 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from overlapnet_torch.parallel.mesh import Mesh, all_reduce_sum
 
-def sigmoid_overlap_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+
+def sigmoid_overlap_loss(
+    pred: torch.Tensor, target: torch.Tensor, global_batch: int | None = None
+) -> torch.Tensor:
     """Mean sigmoid-shaped overlap regression loss (training.py:71-83).
 
     Args:
       pred: (B,) or (B, 1) predicted overlap in [0, 1].
       target: (B,) true overlap.
+      global_batch: the batch over all ranks when these B pairs are one
+        rank's block: the sum is divided by it instead of B.
     """
     diff = torch.abs(pred.reshape(target.shape) - target)
-    return torch.mean(torch.sigmoid((diff + 0.25) * 24.0 - 12.0))
+    loss = torch.sigmoid((diff + 0.25) * 24.0 - 12.0)
+    return torch.mean(loss) if global_batch is None else torch.sum(loss) / global_batch
 
 
 def orientation_target(
@@ -54,6 +68,8 @@ def weighted_orientation_entropy(
     min_overlap_for_angle: float = 0.7,
     pair_mask: torch.Tensor | None = None,
     soft_overlap_min: float = -1.0,
+    global_batch: int | None = None,
+    mask_total: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Weighted cross-entropy on yaw logits (training.py:86-92).
 
@@ -70,6 +86,10 @@ def weighted_orientation_entropy(
 
     ``pair_mask`` (B,) averages only over the pairs it marks: a
     sub-threshold pair's all-zero target means "yaw unknown", not "no yaw".
+
+    For one rank's block of a global batch: ``global_batch`` divides the
+    unmasked sum, ``mask_total`` (the count of marked pairs over all ranks,
+    a 0-d tensor) the masked one.
     """
     if 0.0 <= soft_overlap_min < min_overlap_for_angle:
         z = torch.clamp(
@@ -86,8 +106,11 @@ def weighted_orientation_entropy(
     if pair_mask is not None:
         per_pair = torch.mean(loss, dim=-1)
         m = pair_mask.to(loss.dtype)
-        return torch.sum(per_pair * m) / torch.clamp(torch.sum(m), min=1.0)
-    return torch.mean(loss)
+        count = torch.sum(m) if mask_total is None else mask_total
+        return torch.sum(per_pair * m) / torch.clamp(count, min=1.0)
+    if global_batch is None:
+        return torch.mean(loss)
+    return torch.sum(loss) / (global_batch * loss.shape[-1])
 
 
 def combined_loss(
@@ -102,6 +125,7 @@ def combined_loss(
     orientation_weight: float = 1.0,
     mask_zero_orientation: bool = False,
     soft_overlap_min: float = -1.0,
+    mesh: Mesh | None = None,
 ):
     """Total loss = 5 * overlap + 1 * orientation (training.py:257).
 
@@ -110,11 +134,22 @@ def combined_loss(
     soft_overlap_min when the soft ramp is active); reference parity =
     False (training.py:86-92 averages over all).
 
+    With a ``mesh`` of more than one rank the inputs are this rank's block of
+    the global batch and the values are its share of the global loss (see
+    the module docstring); the count of unmasked pairs is all-reduced on the
+    device, with no host read. With no mesh or a mesh of one rank the values
+    are formed exactly as without.
+
     Returns (total, {"loss", "overlap_loss", "orientation_loss"})."""
-    l_overlap = sigmoid_overlap_loss(overlap_pred, overlap_true)
+    ranks = 1 if mesh is None else mesh.size
+    global_batch = overlap_true.shape[0] * ranks if ranks > 1 else None
+    l_overlap = sigmoid_overlap_loss(overlap_pred, overlap_true, global_batch)
     soft = 0.0 <= soft_overlap_min < min_overlap_for_angle
     mask_thr = soft_overlap_min if soft else min_overlap_for_angle
     pair_mask = overlap_true > mask_thr if mask_zero_orientation else None
+    mask_total = None
+    if pair_mask is not None and ranks > 1:
+        mask_total = all_reduce_sum(mesh, torch.sum(pair_mask.to(orientation_logits.dtype)))
     l_orient = weighted_orientation_entropy(
         orientation_logits,
         orientation_target_vec,
@@ -122,6 +157,8 @@ def combined_loss(
         min_overlap_for_angle,
         pair_mask=pair_mask,
         soft_overlap_min=soft_overlap_min,
+        global_batch=global_batch,
+        mask_total=mask_total,
     )
     total = overlap_weight * l_overlap + orientation_weight * l_orient
     return total, {"loss": total, "overlap_loss": l_overlap, "orientation_loss": l_orient}

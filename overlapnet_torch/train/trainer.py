@@ -1,4 +1,4 @@
-"""Training loop on one device.
+"""Training loop, on one device or data-parallel over a mesh of ranks.
 
 Replaces the reference's single-GPU keras ``fit_generator`` epoch loop
 (reference: training.py:336-420) and mirrors the JAX package's
@@ -17,6 +17,16 @@ mask on the update instead of a duplicate frozen module.
 
 The parameters live in the model and every step updates them and the
 optimizer state in place; a step hands back the state it was given.
+
+Data parallelism (``mesh=``, the counterpart of the JAX trainer's
+``in_shardings``): every rank holds the same parameters and optimizer state
+and gets the same GLOBAL batch; it takes its block of the batch
+(``parallel.mesh.put_sharded``), forms its share of the global-batch loss
+(``losses.combined_loss(mesh=)``) and its gradients, and one SUM all-reduce
+of one flat bucket (gradients and the loss values) gives every rank the
+global batch's gradients before ``grad_norm`` and the group-wise clip. The
+update then runs alike on every rank, so parameters stay bit-equal across
+ranks. A mesh of one rank gives the bits of no mesh.
 """
 
 from __future__ import annotations
@@ -30,10 +40,17 @@ import numpy as np
 import torch
 
 from overlapnet_torch.core.config import OverlapNetConfig
-from overlapnet_torch.core.device import resolve_device
 from overlapnet_torch.models import OverlapNet, build_model, leg_output_width
 from overlapnet_torch.ops.correlation import subbin_peak
 from overlapnet_torch.ops.yaw import peak_to_degrees, ref_bins_to_degrees, target_bins
+from overlapnet_torch.parallel.mesh import (
+    Mesh,
+    all_gather,
+    all_reduce_sum,
+    device_of,
+    pad_to_multiple,
+    put_sharded_dim,
+)
 from overlapnet_torch.train.evaluate import overlap_metrics, yaw_metrics
 from overlapnet_torch.train.losses import combined_loss, orientation_target
 from overlapnet_torch.train.schedule import reference_lr_schedule
@@ -161,7 +178,16 @@ def _on_device(batch: Mapping, device: torch.device) -> dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
 
 
-def _loss(cfg: OverlapNetConfig, model: OverlapNet, x1, x2, overlap, orientation):
+def _local(batch: Mapping, mesh: Mesh | None, device: torch.device, dim: int = 0) -> dict:
+    """The tensors of a step on ``device``: the whole batch, or with a mesh
+    this rank's block of dimension ``dim`` of the global batch."""
+    if mesh is None:
+        return _on_device(batch, device)
+    return {k: put_sharded_dim(mesh, v, dim) for k, v in batch.items()}
+
+
+def _loss(cfg: OverlapNetConfig, model: OverlapNet, x1, x2, overlap, orientation,
+          mesh: Mesh | None = None):
     output_size = leg_output_width(cfg.model)
     # one leg pass over both sides of the pairs: the legs share their
     # weights, and half the launches is what the host-bound step gains from
@@ -181,46 +207,66 @@ def _loss(cfg: OverlapNetConfig, model: OverlapNet, x1, x2, overlap, orientation
         orientation_weight=cfg.train.orientation_loss_weight,
         mask_zero_orientation=cfg.train.mask_zero_orientation,
         soft_overlap_min=cfg.train.yaw_soft_overlap_min,
+        mesh=mesh,
     )
 
 
-def loss_and_grads(cfg: OverlapNetConfig, model: OverlapNet, x1, x2, overlap, orientation):
+def _sum_over_ranks(mesh: Mesh, tensors: list[torch.Tensor]) -> None:
+    """One SUM all-reduce of ``tensors`` (gradients and loss values) as one
+    flat bucket, copied back in place: every rank gets the global batch's.
+    The tensors keep their strides, so a norm sums in the same order as
+    without a mesh."""
+    flat = all_reduce_sum(mesh, torch.cat([t.reshape(-1) for t in tensors]))
+    torch._foreach_copy_(
+        tensors, [p.view_as(t) for p, t in zip(flat.split([t.numel() for t in tensors]), tensors)])
+
+
+def loss_and_grads(cfg: OverlapNetConfig, model: OverlapNet, x1, x2, overlap, orientation,
+                   mesh: Mesh | None = None):
     """Forward and backward of one batch (tensors on the model's device):
     ({loss, overlap_loss, orientation_loss, grad_norm} as detached 0-d
     tensors, {parameter name: gradient}). A parameter the loss does not
     reach has a zero gradient; ``grad_norm`` is the global norm of the raw
-    gradients, frozen legs included."""
-    total, metrics = _loss(cfg, model, x1, x2, overlap.float(), orientation)
+    gradients, frozen legs included. With a ``mesh`` the tensors are this
+    rank's block of the global batch and both results are the global
+    batch's, alike on every rank."""
+    total, metrics = _loss(cfg, model, x1, x2, overlap.float(), orientation, mesh)
     params = dict(model.named_parameters())
     found = torch.autograd.grad(total, list(params.values()), allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g
              for (n, p), g in zip(params.items(), found)}
     metrics = {k: v.detach() for k, v in metrics.items()}
+    if mesh is not None:
+        _sum_over_ranks(mesh, [*grads.values(), *metrics.values()])
     metrics["grad_norm"] = global_norm(grads.values())
     return metrics, grads
 
 
-def _apply_step(cfg, tx: Optimizer, state: TrainState, x1, x2, overlap, orientation):
-    metrics, grads = loss_and_grads(cfg, state.model, x1, x2, overlap, orientation)
+def _apply_step(cfg, tx: Optimizer, state: TrainState, x1, x2, overlap, orientation,
+                mesh: Mesh | None = None):
+    metrics, grads = loss_and_grads(cfg, state.model, x1, x2, overlap, orientation, mesh)
     tx.update(dict(state.model.named_parameters()), grads, state.opt_state, state.step)
     state.step += 1
     return state, metrics
 
 
 def make_train_step(
-    cfg: OverlapNetConfig, tx: Optimizer
+    cfg: OverlapNetConfig, tx: Optimizer, mesh: Mesh | None = None
 ) -> Callable[[TrainState, Mapping], tuple[TrainState, dict]]:
     """The train step on host batches.
 
     Batch dict: x1, x2 (B, H, W, C) range-image pairs; overlap (B,);
     orientation (B,) integer yaw bins; numpy arrays or tensors. Returns the
     state (updated in place) and {loss, overlap_loss, orientation_loss,
-    grad_norm} as 0-d tensors on the model's device."""
+    grad_norm} as 0-d tensors on the model's device. With a ``mesh`` every
+    rank passes the same global batch (B divisible by the mesh size) and
+    trains on its block."""
 
     def step_fn(state: TrainState, batch):
         device = next(state.model.parameters()).device
-        b = _on_device(batch, device)
-        return _apply_step(cfg, tx, state, b["x1"], b["x2"], b["overlap"], b["orientation"])
+        b = _local(batch, mesh, device)
+        return _apply_step(cfg, tx, state, b["x1"], b["x2"], b["overlap"], b["orientation"],
+                           mesh)
 
     return step_fn
 
@@ -233,35 +279,49 @@ def roll_columns(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     return x.gather(2, cols.to(torch.int64)[:, None, :, None].expand(n, h, w, c))
 
 
-def make_resident_train_step(cfg: OverlapNetConfig, tx: Optimizer):
-    """Train step over a device-resident scan store (data.dataset.
-    ResidentPairs): signature (state, images (N, H, W, C) on the device,
-    batch {i1, i2, shift, overlap, orientation}). Pair gathers and the
-    rotate_data circular shift (host semantics: np.roll(x2, +shift, axis=1))
-    run on the device, so only O(batch) integers cross the link."""
+def _resident_step_fn(cfg: OverlapNetConfig, tx: Optimizer, mesh: Mesh | None):
+    """The resident step on a batch already on the images' device (this
+    rank's block with a mesh)."""
 
-    def step_fn(state: TrainState, images: torch.Tensor, batch):
-        b = _on_device(batch, images.device)
+    def step_fn(state: TrainState, images: torch.Tensor, b):
         x1 = images[b["i1"].to(torch.int64)]
         x2 = roll_columns(images[b["i2"].to(torch.int64)], b["shift"])
-        return _apply_step(cfg, tx, state, x1, x2, b["overlap"], b["orientation"])
+        return _apply_step(cfg, tx, state, x1, x2, b["overlap"], b["orientation"], mesh)
 
     return step_fn
 
 
-def make_resident_multi_step(cfg: OverlapNetConfig, tx: Optimizer):
+def make_resident_train_step(cfg: OverlapNetConfig, tx: Optimizer, mesh: Mesh | None = None):
+    """Train step over a device-resident scan store (data.dataset.
+    ResidentPairs): signature (state, images (N, H, W, C) on the device,
+    batch {i1, i2, shift, overlap, orientation}). Pair gathers and the
+    rotate_data circular shift (host semantics: np.roll(x2, +shift, axis=1))
+    run on the device, so only O(batch) integers cross the link. With a
+    ``mesh`` the images are replicated and each rank takes its block of the
+    global index batch."""
+    step_fn = _resident_step_fn(cfg, tx, mesh)
+
+    def single(state: TrainState, images: torch.Tensor, batch):
+        return step_fn(state, images, _local(batch, mesh, images.device))
+
+    return single
+
+
+def make_resident_multi_step(cfg: OverlapNetConfig, tx: Optimizer, mesh: Mesh | None = None):
     """K train steps per call over stacked index batches (each leaf (K, B)):
     (state, images, batches) -> (state, {loss (K,), grad_norm (K,)}). The
     JAX package scans them inside one dispatch to save a link round trip
     per step; eager PyTorch has no such round trip, so this is a plain loop
-    with the results of K single steps."""
-    single = make_resident_train_step(cfg, tx)
+    with the results of K single steps. With a ``mesh`` dimension 1 (the
+    batch) is sharded."""
+    step_fn = _resident_step_fn(cfg, tx, mesh)
 
     def multi_fn(state: TrainState, images: torch.Tensor, batches):
+        batches = _local(batches, mesh, images.device, dim=1)
         k = len(next(iter(batches.values())))
         losses, gnorms = [], []
         for i in range(k):
-            state, metrics = single(state, images, {key: v[i] for key, v in batches.items()})
+            state, metrics = step_fn(state, images, {key: v[i] for key, v in batches.items()})
             losses.append(metrics["loss"])
             gnorms.append(metrics["grad_norm"])
         return state, {"loss": torch.stack(losses), "grad_norm": torch.stack(gnorms)}
@@ -269,18 +329,24 @@ def make_resident_multi_step(cfg: OverlapNetConfig, tx: Optimizer):
     return multi_fn
 
 
-def make_eval_step(cfg: OverlapNetConfig):
+def make_eval_step(cfg: OverlapNetConfig, mesh: Mesh | None = None):
     """Forward giving (overlap (B,), yaw peak (B,) float sub-bin positions)
     for the validation metrics of the reference epoch loop
     (training.py:352-416). The sub-bin parabolic peak replaces the raw
-    argmax (same convention as serving, ops.correlation.subbin_peak)."""
+    argmax (same convention as serving, ops.correlation.subbin_peak). With a
+    ``mesh`` each rank scores its block of the global batch (B divisible by
+    the mesh size) and every rank gets all B results."""
 
     @torch.inference_mode()
     def eval_fn(model: OverlapNet, batch):
         device = next(model.parameters()).device
-        b = _on_device({"x1": batch["x1"], "x2": batch["x2"]}, device)
+        b = _local({"x1": batch["x1"], "x2": batch["x2"]}, mesh, device)
         overlap_pred, orient_logits = model(b["x1"], b["x2"])
-        return overlap_pred.reshape(-1), subbin_peak(orient_logits)
+        overlap, peak = overlap_pred.reshape(-1), subbin_peak(orient_logits)
+        if mesh is not None:  # (D, 2, B/D) in rank order -> (2, B)
+            out = all_gather(mesh, torch.stack([overlap.float(), peak]))
+            overlap, peak = out.transpose(0, 1).reshape(2, -1)
+        return overlap, peak
 
     return eval_fn
 
@@ -290,14 +356,17 @@ class Trainer:
     """Epoch-driven trainer mirroring the reference loop: per-epoch training,
     checkpoint save, validation metrics (overlap mean/max/RMS; yaw RMS at
     overlap thresholds 0.3-0.9, reference training.py:336-420). Runs on
-    ``device`` ("cuda" by default; raises if no card is visible)."""
+    ``device`` ("cuda" by default; raises if no card is visible), or
+    data-parallel over ``mesh`` on its rank's device; then every rank passes
+    the same global batches."""
 
     cfg: OverlapNetConfig
     steps_per_epoch: int
-    device: str | torch.device = "cuda"
+    device: str | torch.device | None = None
     # cap on dispatched steps the device has not finished: bounds the
     # memory held by queued batches without a host wait per step
     pipeline_depth: int = 32
+    mesh: Mesh | None = None
 
     def __post_init__(self):
         if (
@@ -310,10 +379,10 @@ class Trainer:
                 "'calibrated' (shift-adjusted labels are contradictory "
                 "supervision in the reference yaw space)"
             )
-        self.device = resolve_device(self.device)
+        self.device = device_of(self.device, self.mesh)
         self.state, self.tx = create_train_state(
             self.cfg, self.steps_per_epoch, self.cfg.train.seed, self.device)
-        self.eval_step = make_eval_step(self.cfg)
+        self.eval_step = make_eval_step(self.cfg, self.mesh)
         self._steps: dict[tuple[str, bool], Callable] = {}
 
     def _released_cfg(self) -> OverlapNetConfig:
@@ -335,7 +404,8 @@ class Trainer:
         if key not in self._steps:
             make = {"host": make_train_step, "resident": make_resident_train_step,
                     "resident_multi": make_resident_multi_step}[kind]
-            self._steps[key] = make(self._released_cfg() if released else self.cfg, self.tx)
+            self._steps[key] = make(self._released_cfg() if released else self.cfg, self.tx,
+                                    self.mesh)
         return self._steps[key]
 
     def run_epoch(self, batches, epoch: int = 0) -> dict:
@@ -413,12 +483,19 @@ class Trainer:
 
     def evaluate(self, batches) -> dict:
         """Validation metrics over an iterable of eval batches (each with
-        x1, x2, overlap, orientation host arrays)."""
+        x1, x2, overlap, orientation host arrays). With a mesh, evaluation
+        is sharded like training: a ragged batch is padded to a multiple of
+        the mesh size and the results trimmed after."""
         pred_overlap, pred_yaw, true_overlap, true_yaw = [], [], [], []
         for batch in batches:
-            ov, yaw = self.eval_step(self.state.model, batch)
-            pred_overlap.append(ov)
-            pred_yaw.append(yaw)
+            x1, x2 = batch["x1"], batch["x2"]
+            n = len(x1)
+            if self.mesh is not None:
+                x1, _ = pad_to_multiple(np.asarray(x1), self.mesh.size)
+                x2, _ = pad_to_multiple(np.asarray(x2), self.mesh.size)
+            ov, yaw = self.eval_step(self.state.model, {"x1": x1, "x2": x2})
+            pred_overlap.append(ov[:n])
+            pred_yaw.append(yaw[:n])
             true_overlap.append(np.asarray(batch["overlap"]))
             true_yaw.append(np.asarray(batch["orientation"]))
         pred_overlap = torch.cat(pred_overlap).float().cpu().numpy()

@@ -23,6 +23,7 @@ from overlapnet_torch import backend as tb
 from overlapnet_torch.backend import ate as tate
 from overlapnet_torch.backend import pose_graph as tpg
 from overlapnet_torch.lcd.online import LoopClosure
+from overlapnet_torch.parallel.mesh import make_mesh
 
 from test_backend import drifted_odometry, square_trajectory
 
@@ -223,8 +224,11 @@ def test_float64_solve_and_argument_checks():
     p32, _ = tpg.optimize_pose_graph(graph, est, device="cpu", **kw)
     assert p64.dtype == np.float64 and chi64.dtype == np.float64
     assert _pose_diffs(p64, p32)[0] < 1e-3
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tpg.optimize_pose_graph(graph, est, mesh=object(), device="cpu")
+    # a mesh of one rank is the one-device solve; a wider one than the world raises
+    p_mesh, _ = tpg.optimize_pose_graph(graph, est, mesh=make_mesh(1, device="cpu"), **kw)
+    np.testing.assert_array_equal(p_mesh, p32)
+    with pytest.raises(ValueError, match="world of 1"):
+        make_mesh(2, device="cpu")
     with pytest.raises(ValueError, match="robust_kernel"):
         tpg.optimize_pose_graph(graph, est, robust_delta=1.0, robust_kernel="cauchy",
                                 device="cpu")

@@ -712,4 +712,4 @@ def test_cli_lcd(tree, tmp_path, capsys):
     with pytest.raises(SystemExit) as exit_info:
         main(["lcd", str(demo), "--device", "cpu", "--mesh", "2"])
     assert exit_info.value.code == 2
-    assert "multi-GPU slice" in capsys.readouterr().err
+    assert "the world has 1 rank" in capsys.readouterr().err

@@ -90,7 +90,8 @@ for new in ("lcd.gating", "lcd.online", "geometry.kitti", "cli.lcd",
             "geometry.rotations", "data.native", "data.pack", "data.balancing",
             "cli.gen_data", "cli.gen_gt", "cli.pack", "backend", "backend.ate",
             "backend.pose_graph", "core.profiling", "cli.evaluate", "cli.sim",
-            "sim.e2e", "sim.trainability_ab"):
+            "sim.e2e", "sim.trainability_ab", "parallel", "parallel.mesh",
+            "core.distributed"):
     assert "overlapnet_torch." + new in names, new
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "optax", "orbax") or m.split(".")[0] in
