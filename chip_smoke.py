@@ -206,6 +206,20 @@ def card_peaks(name: str) -> tuple[float, float, float]:
     raise RuntimeError(f"no published peaks on record for {name!r}")
 
 
+def kernel_launches() -> dict:
+    """K1's and K2's launches so far: the port's ``k1.launches`` and
+    ``k2.launches`` counters (``overlapnet_torch.core.profiling``)."""
+    from overlapnet_torch.core.profiling import totals
+
+    t = totals()
+    return {"delta_conv1": t.get("k1.launches", 0), "delta_conv1_bwd": t.get("k2.launches", 0)}
+
+
+def launches_since(start: dict) -> dict:
+    """K1's and K2's launches since ``start`` (a ``kernel_launches()``)."""
+    return {k: n - start[k] for k, n in kernel_launches().items()}
+
+
 def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     """Mean device time of one ``fn()`` call over ``iters`` calls."""
     for _ in range(warmup):
@@ -386,12 +400,12 @@ def phase_kernel_bwd(torch, k1, plain, name, smi):
         def run():
             return k1.delta_conv1_backward(a, b, kern, g, stride=S, need_volumes=not frozen)
 
-        before = k1.delta_conv1.backward_launches
+        k_start = kernel_launches()
         got = run()
         torch.cuda.synchronize()
-        if k1.delta_conv1.backward_launches != before + groups:
-            raise RuntimeError(f"K2's wrapper counted {k1.delta_conv1.backward_launches - before} "
-                               f"launches for {groups} column groups")
+        counted = launches_since(k_start)["delta_conv1_bwd"]
+        if counted != groups:
+            raise RuntimeError(f"K2's wrapper counted {counted} launches for {groups} column groups")
         # every sum is taken in a fixed order: a second call gives the same bits
         again = run()
         torch.cuda.synchronize()
@@ -511,7 +525,7 @@ def serve(infer, names):
     return {"overlaps": overlaps, "yaw_vs": yaw_v, "best": best, "yaw_multi": yaw_m}
 
 
-def phase_model(torch, k1, smi):
+def phase_model(torch, smi):
     from overlapnet_torch.core.config import OverlapNetConfig
     from overlapnet_torch.lcd.infer import Infer
     from overlapnet_torch.models import init_params
@@ -527,12 +541,12 @@ def phase_model(torch, k1, smi):
         gpu = Infer(cfg, params=params, db_capacity=128, device="cuda")
         serve(gpu, names)  # warm-up: cuDNN plans, first launches
         gpu = Infer(cfg, params=params, db_capacity=128, device="cuda")
-        k1.delta_conv1.launches = 0
+        k_start = kernel_launches()
         t0 = time.perf_counter()
         res = serve(gpu, names)
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
-        launches = k1.delta_conv1.launches
+        launches = launches_since(k_start)["delta_conv1"]
         if launches == 0:
             raise RuntimeError("the serving path launched no delta_conv1 kernel")
         pairs = 1 + 64 + 16 + 4
@@ -695,8 +709,10 @@ def busy_share(torch, run, top: int = 6, name_chars: int = 60) -> dict:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    # a span's mark on the device's timeline is no work
     rows = sorted(((e.key, e.self_device_time_total / 1e3) for e in events
-                   if e.device_type.name == "CUDA"), key=lambda r: -r[1])
+                   if e.device_type.name == "CUDA" and not e.is_user_annotation),
+                  key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms in rows)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms if rows else None,
@@ -705,7 +721,7 @@ def busy_share(torch, run, top: int = 6, name_chars: int = 60) -> dict:
             "top": [[k[:name_chars], ms] for k, ms in rows[:top]]}
 
 
-def phase_lcd(torch, k1, smi):
+def phase_lcd(torch, smi):
     from overlapnet_torch.core.config import OverlapNetConfig
     from overlapnet_torch.data.dataset import assemble_scan_image
     from overlapnet_torch.lcd import gating
@@ -735,7 +751,7 @@ def phase_lcd(torch, k1, smi):
         scored_frames = sum(1 for c in candidates if c)
         pairs = sum(len(c) for c in candidates)
         piped = engine(covs)
-        k1.delta_conv1.launches = 0
+        k_start = kernel_launches()
         torch.cuda.set_sync_debug_mode("error")
         try:
             t0 = time.perf_counter()
@@ -744,7 +760,7 @@ def phase_lcd(torch, k1, smi):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        launches = k1.delta_conv1.launches
+        launches = launches_since(k_start)["delta_conv1"]
         if launches < scored_frames:
             raise RuntimeError(f"{launches} delta_conv1 launches for {scored_frames} scored frames")
         if [c.frame for c in piped.closures] != [i for i, c in enumerate(candidates) if c]:
@@ -784,12 +800,12 @@ def phase_lcd(torch, k1, smi):
         # no covariances: unbounded search, late frames exceed one head call
         wide_candidates = gated_candidates(gating, poses, None)
         wide = engine(None)
-        before = k1.delta_conv1.launches
+        k_start = kernel_launches()
         t0 = time.perf_counter()
         wide.run(pipeline_depth=8)
         torch.cuda.synchronize()
         wide_s = time.perf_counter() - t0
-        wide_launches = k1.delta_conv1.launches - before
+        wide_launches = launches_since(k_start)["delta_conv1"]
         most = max(len(c) for c in wide_candidates)
         if wide_launches <= sum(1 for c in wide_candidates if c):
             raise RuntimeError(f"no frame was scored in chunks ({most} candidates at most)")
@@ -916,7 +932,7 @@ def grads_of(torch, trainer_mod, cfg, trainer, batch):
             {k: g.detach().float().cpu() for k, g in grads.items()})
 
 
-def phase_train(torch, k1, smi):
+def phase_train(torch, smi):
     from overlapnet_torch.core.config import OverlapNetConfig
     from overlapnet_torch.data.dataset import PairImageDataset, ResidentPairs
     from overlapnet_torch.data.gt_files import load_gt_pairs, save_gt_files
@@ -958,7 +974,7 @@ def phase_train(torch, k1, smi):
         torch.cuda.synchronize()
 
         # ---- the main path, with the launch counts read around it
-        k1.delta_conv1.launches = k1.delta_conv1.backward_launches = 0
+        k_start = kernel_launches()
         trainer = trainer_for(cfg)
         resident = ResidentPairs(ds)
         losses, t0 = [], time.perf_counter()
@@ -986,8 +1002,7 @@ def phase_train(torch, k1, smi):
         served_overlaps, _ = served.infer_multiple_vs_multiple(
             names, list(range(4)), list(range(TRAIN_BASE, TRAIN_BASE + 4)))
         torch.cuda.synchronize()
-        launches = {"delta_conv1": k1.delta_conv1.launches,
-                    "delta_conv1_bwd": k1.delta_conv1.backward_launches}
+        launches = launches_since(k_start)
 
         # (a) one K1 launch per train step, per evaluated batch and per
         # served request; one K2 launch per train step
@@ -1173,7 +1188,7 @@ def gt_against_cpu(got: np.ndarray, want: np.ndarray, valid: np.ndarray, what: s
             "equal_overlaps_share": float((d == 0).mean())}
 
 
-def phase_prep(torch, k1, smi):
+def phase_prep(torch, smi):
     """The data-preparation path on the card: sim scans -> gen-data ->
     gen-gt --all-queries -> pack -> train --pack-dir, through the port's CLI."""
     import json as json_mod
@@ -1345,11 +1360,10 @@ def phase_prep(torch, k1, smi):
                 lines = [json_mod.loads(line) for line in f]
             return latest_step(os.path.join(out, "checkpoints")), lines
 
-        k1.delta_conv1.launches = k1.delta_conv1.backward_launches = 0
+        k_start = kernel_launches()
         steps, lines = train("from_packs", "--no-resident")
         torch.cuda.synchronize()
-        launches = {"delta_conv1": k1.delta_conv1.launches,
-                    "delta_conv1_bwd": k1.delta_conv1.backward_launches}
+        launches = launches_since(k_start)
         eval_batches = sum(1 for x in lines if x["phase"] == "validation")
         if steps != PREP_STEPS or launches != {"delta_conv1": steps + eval_batches,
                                                "delta_conv1_bwd": steps}:
@@ -1429,7 +1443,7 @@ def loop_graph(n: int = PG_POSES, seed: int = 7):
     return gt, est, odometry_edges(est).merged(closures_to_edges(closures, n))
 
 
-def phase_e2e(torch, k1, smi):
+def phase_e2e(torch, smi):
     """The sim e2e harness on the card: (a) ``run_e2e`` at full width, (b)
     ``cli evaluate`` on its validation set, (c) the pose graph at KITTI 00's
     length."""
@@ -1440,7 +1454,6 @@ def phase_e2e(torch, k1, smi):
 
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults, as a user runs it
     torch.backends.cuda.matmul.allow_tf32 = False
-    launches = lambda: (k1.delta_conv1.launches, k1.delta_conv1.backward_launches)  # noqa: E731
     phase_t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         # ---- (a) run_e2e, each stage timed and its launches counted
@@ -1448,12 +1461,10 @@ def phase_e2e(torch, k1, smi):
 
         def staged(name, fn):
             def run(*args, **kw):
-                before, t0 = launches(), time.perf_counter()
+                before, t0 = kernel_launches(), time.perf_counter()
                 out = fn(*args, **kw)
                 torch.cuda.synchronize()
-                after = launches()
-                stages[name] = {"s": time.perf_counter() - t0, "delta_conv1": after[0] - before[0],
-                                "delta_conv1_bwd": after[1] - before[1]}
+                stages[name] = {"s": time.perf_counter() - t0, **launches_since(before)}
                 return out
             return run
 
@@ -1462,7 +1473,7 @@ def phase_e2e(torch, k1, smi):
         for name in names:
             setattr(e2e, name, staged(name, originals[name]))
         work = os.path.join(tmp, "e2e")
-        k1.delta_conv1.launches = k1.delta_conv1.backward_launches = 0
+        k_start = kernel_launches()
         t0 = time.perf_counter()
         try:
             m = e2e.run_e2e(work, n_frames=E2E_FRAMES, epochs=E2E_EPOCHS,
@@ -1472,8 +1483,7 @@ def phase_e2e(torch, k1, smi):
                 setattr(e2e, name, originals[name])
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        harness = {"delta_conv1": k1.delta_conv1.launches,
-                   "delta_conv1_bwd": k1.delta_conv1.backward_launches}
+        harness = launches_since(k_start)
         floors = {
             "trained_rms_below_0.8_untrained":
                 m["trained_overlap_rms_error"] < 0.8 * m["untrained_overlap_rms_error"],
@@ -1502,11 +1512,11 @@ def phase_e2e(torch, k1, smi):
         cfg = e2e.make_config(work, batch_size=E2E_BATCH, no_epochs=E2E_EPOCHS)
         cfg.data.training_seqs = [e2e.SEQ]
         params = load_npz(os.path.join(work, "trained_params.npz"))
-        k1.delta_conv1.launches = k1.delta_conv1.backward_launches = 0
+        k_start = kernel_launches()
         t0 = time.perf_counter()
         ev_metrics, ev = cli_evaluate.evaluate(cfg, params, device="cuda")
         evaluate_s = time.perf_counter() - t0
-        ev_launches = k1.delta_conv1.launches
+        ev_launches = launches_since(k_start)["delta_conv1"]
         d_rms = abs(ev_metrics["overlap_rms_error"] - m["trained_overlap_rms_error"])
         if len(ev["pred_overlap"]) != m["train_n_val_pairs"] or d_rms > 1e-3 or not ev_launches:
             raise RuntimeError(f"cli evaluate: {len(ev['pred_overlap'])} pairs, overlap RMS "
@@ -1631,7 +1641,6 @@ def dist_rank(rank: int, work: str) -> int:
     from overlapnet_torch.core.distributed import maybe_initialize_distributed
     from overlapnet_torch.data.dataset import PairImageDataset, ResidentPairs
     from overlapnet_torch.data.gt_files import load_gt_pairs
-    from overlapnet_torch.kernels import delta_conv1 as k1
     from overlapnet_torch.lcd.infer import Infer
     from overlapnet_torch.lcd.online import OnlineLoopCloser
     from overlapnet_torch.models import init_params, leg_output_width
@@ -1671,12 +1680,11 @@ def dist_rank(rank: int, work: str) -> int:
     # ---- data-parallel training, fp32 legs: the main path of this rank
     train(cfg32, None, mesh, steps=1)  # warm-up: cuDNN plans, gloo pairs
     torch.cuda.synchronize()
-    k1.delta_conv1.launches = k1.delta_conv1.backward_launches = 0
+    k_start = kernel_launches()
     trainer, metrics, first = train(cfg32, None, mesh)
     eval_dp = trainer.evaluate(ds.batches(TRAIN_BATCH))
     torch.cuda.synchronize()
-    out["train_launches"] = {"delta_conv1": k1.delta_conv1.launches,
-                             "delta_conv1_bwd": k1.delta_conv1.backward_launches}
+    out["train_launches"] = launches_since(k_start)
     flat = torch.cat([v.reshape(-1) for v in trainer.state.params.values()])
     gathered = all_gather(mesh, flat)
     out["params_equal_across_ranks"] = bool(torch.equal(gathered[0], gathered[1]))
@@ -1736,13 +1744,13 @@ def dist_rank(rank: int, work: str) -> int:
     closer(mesh=mesh).run(LCD_OUT + 8)  # warm-up
     torch.cuda.synchronize()
     barrier(mesh)
-    k1.delta_conv1.launches = 0
+    k_start = kernel_launches()
     sharded = closer(mesh=mesh)
     t0 = time.perf_counter()
     sharded.run(pipeline_depth=8)
     torch.cuda.synchronize()
     out["lcd_s"] = time.perf_counter() - t0
-    out["lcd_launches"] = {"delta_conv1": k1.delta_conv1.launches}
+    out["lcd_launches"] = {"delta_conv1": launches_since(k_start)["delta_conv1"]}
     arrays["closures"] = np.array([[c.frame, c.match, c.overlap, c.yaw_deg, c.confidence]
                                    for c in sharded.closures], np.float64)
     barrier(mesh)
@@ -1783,7 +1791,7 @@ def dist_rank(rank: int, work: str) -> int:
     return 0
 
 
-def phase_dist(torch, k1, smi):
+def phase_dist(torch, smi):
     """(a) one NCCL rank in this process; (b) two gloo ranks on the card."""
     import torch.distributed as dist
 
@@ -1821,14 +1829,13 @@ def phase_dist(torch, k1, smi):
             torch.backends.cudnn.allow_tf32 = True
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.deterministic = True  # two runs, the same cuDNN algorithms
-            k1.delta_conv1.launches = k1.delta_conv1.backward_launches = 0
+            k_start = kernel_launches()
             t0 = time.perf_counter()
             if cli_main(["train", dist_train_yml(tmp, data, "mesh")]) != 0:
                 raise RuntimeError("cli train on a mesh of one rank failed")
             mesh_train_s = time.perf_counter() - t0
             torch.cuda.synchronize()
-            train_launches = {"delta_conv1": k1.delta_conv1.launches,
-                              "delta_conv1_bwd": k1.delta_conv1.backward_launches}
+            train_launches = launches_since(k_start)
             if cli_main(["train", dist_train_yml(tmp, data, "single"), "--single-device"]) != 0:
                 raise RuntimeError("cli train --single-device failed")
             torch.backends.cudnn.deterministic = False
@@ -1856,7 +1863,7 @@ def phase_dist(torch, k1, smi):
 
             closer(mesh=mesh1).run(LCD_OUT + 8)  # warm-up: NCCL's communicator, plans
             torch.cuda.synchronize()
-            k1.delta_conv1.launches = 0
+            k_start = kernel_launches()
             on_mesh = closer(mesh=mesh1)
             torch.cuda.set_sync_debug_mode("error")
             try:
@@ -1866,7 +1873,7 @@ def phase_dist(torch, k1, smi):
                 mesh_lcd_s = time.perf_counter() - t0
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-            lcd_launches = k1.delta_conv1.launches
+            lcd_launches = launches_since(k_start)["delta_conv1"]
             scored = len(on_mesh.closures)
             if lcd_launches < scored or scored < LCD_OUT // 2:
                 raise RuntimeError(f"{lcd_launches} K1 launches for {scored} scored frames")
@@ -2029,12 +2036,12 @@ def main(argv: list[str]) -> int:
     run = {
         "kernel": lambda: phase_kernel(torch, k1, plain, name, smi),
         "kernel_bwd": lambda: phase_kernel_bwd(torch, k1, plain, name, smi),
-        "model": lambda: phase_model(torch, k1, smi),
-        "lcd": lambda: phase_lcd(torch, k1, smi),
-        "train": lambda: phase_train(torch, k1, smi),
-        "prep": lambda: phase_prep(torch, k1, smi),
-        "e2e": lambda: phase_e2e(torch, k1, smi),
-        "dist": lambda: phase_dist(torch, k1, smi),
+        "model": lambda: phase_model(torch, smi),
+        "lcd": lambda: phase_lcd(torch, smi),
+        "train": lambda: phase_train(torch, smi),
+        "prep": lambda: phase_prep(torch, smi),
+        "e2e": lambda: phase_e2e(torch, smi),
+        "dist": lambda: phase_dist(torch, smi),
     }
     out = {phase: run[phase]() for phase in PHASES if not only or phase in only}
     if only:  # a part of the run, for development: no result line

@@ -10,6 +10,12 @@ Usage:
   python -m overlapnet_torch.cli gen-gt --scan-folder S --poses-file P
       --calib-file C --dst-folder D [--seq 07] [--frame-idx 0]
       [--all-queries [--query-stride K]] [--device cuda|cpu]
+      [--profile-dir DIR]
+
+``--profile-dir`` traces the table's computation with torch.profiler
+(``core.profiling.trace``): ``trace.json``, ``key_averages.txt`` and
+``record.json`` (the engine's counters: pairs, pairs past the far-pair gate,
+pairs of overlap above 0) land there.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import os
 import numpy as np
 import yaml
 
+from overlapnet_torch.core.profiling import trace
 from overlapnet_torch.data.balancing import normalize_overlap_distribution, split_train_val
 from overlapnet_torch.data.gt_files import save_gt_files
 from overlapnet_torch.geometry import kitti
@@ -45,6 +52,9 @@ def main(argv: list[str]) -> int:
                     help="save a trajectory plot colored by overlap (demo4 vis_gt)")
     ap.add_argument("--device", default="cuda",
                     help="where the pairs are scored (default cuda; raises without a card)")
+    ap.add_argument("--profile-dir", default="",
+                    help="capture a torch.profiler trace of the GT computation, with the "
+                         "engine's spans and counters, into this dir")
     args = ap.parse_args(argv)
 
     scan_folder, poses_file = args.scan_folder, args.poses_file
@@ -64,23 +74,24 @@ def main(argv: list[str]) -> int:
     poses = kitti.poses_cam_to_velo(kitti.load_poses(poses_file), T_cam_velo)
     print(f"{len(scan_paths)} scans, {len(poses)} poses")
 
-    if args.all_queries:
-        import time
+    with trace(args.profile_dir or None):
+        if args.all_queries:
+            import time
 
-        t0 = time.perf_counter()
-        gt = com_overlap_yaw_all(
-            scan_paths, poses,
-            query_idxs=range(0, len(scan_paths), args.query_stride),
-            leg_output_width=args.leg_output_width,
-            device=args.device,
-        )
-        dt = time.perf_counter() - t0
-        print(f"GT: {len(gt)} pairs in {dt:.1f}s ({len(gt) / dt:.1f} pairs/s)")
-    else:
-        gt = com_overlap_yaw(
-            scan_paths, poses, frame_idx=args.frame_idx,
-            leg_output_width=args.leg_output_width, device=args.device,
-        )
+            t0 = time.perf_counter()
+            gt = com_overlap_yaw_all(
+                scan_paths, poses,
+                query_idxs=range(0, len(scan_paths), args.query_stride),
+                leg_output_width=args.leg_output_width,
+                device=args.device,
+            )
+            dt = time.perf_counter() - t0
+            print(f"GT: {len(gt)} pairs in {dt:.1f}s ({len(gt) / dt:.1f} pairs/s)")
+        else:
+            gt = com_overlap_yaw(
+                scan_paths, poses, frame_idx=args.frame_idx,
+                leg_output_width=args.leg_output_width, device=args.device,
+            )
     print(f"ground truth: {len(gt)} pairs, "
           f"overlap mean {gt[:, 2].mean():.3f} max {gt[:, 2].max():.3f}")
 

@@ -16,7 +16,11 @@ Usage:
   python -m overlapnet_torch.cli lcd <demo.yml>   (Demo3 block)
       [--frames N] [--out loop_closures.npz] [--plot traj.png]
       [--animate run.gif] [--session session.npz] [--mesh N] [--no-mesh]
-      [--device cuda|cpu]
+      [--device cuda|cpu] [--profile-dir DIR]
+
+``--profile-dir`` traces the run with torch.profiler (``core.profiling.
+trace``): ``trace.json``, ``key_averages.txt`` and ``record.json`` (the
+loop's counters and its legs' and heads' device milliseconds) land there.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import yaml
 
 from overlapnet_torch.core.config import load_config
 from overlapnet_torch.core.distributed import world
+from overlapnet_torch.core.profiling import trace
 from overlapnet_torch.geometry import kitti
 from overlapnet_torch.lcd.infer import Infer
 from overlapnet_torch.lcd.online import OnlineLoopCloser
@@ -64,6 +69,9 @@ def main(argv: list[str]) -> int:
              "debug/parity only)",
     )
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--profile-dir", default="",
+                    help="capture a torch.profiler trace of the run, with the loop's "
+                         "spans and counters, into this dir")
     args = ap.parse_args(argv)
     n_ranks = world()[1]
     if args.mesh > n_ranks:
@@ -98,17 +106,18 @@ def main(argv: list[str]) -> int:
     # pipelined frame windows (closer.run keeps frames in flight on the
     # device); checkpoints land at window boundaries
     printed = 0
-    while closer._next_frame < n:
-        end = min(n, closer._next_frame + args.checkpoint_every)
-        closer.run(end)
-        for closure in closer.closures[printed:]:
-            say(
-                f"frame {closure.frame:6d} -> {closure.match:6d}  "
-                f"overlap {closure.overlap:.3f}  yaw {closure.yaw_deg:+.0f} deg"
-            )
-        printed = len(closer.closures)
-        if args.session:
-            closer.save_checkpoint(args.session)
+    with trace(args.profile_dir or None):
+        while closer._next_frame < n:
+            end = min(n, closer._next_frame + args.checkpoint_every)
+            closer.run(end)
+            for closure in closer.closures[printed:]:
+                say(
+                    f"frame {closure.frame:6d} -> {closure.match:6d}  "
+                    f"overlap {closure.overlap:.3f}  yaw {closure.yaw_deg:+.0f} deg"
+                )
+            printed = len(closer.closures)
+            if args.session:
+                closer.save_checkpoint(args.session)
     if args.session:
         closer.save_checkpoint(args.session)
 

@@ -1,28 +1,154 @@
-"""Tracing and step-timing hooks.
+"""Spans, counters and the profiler trace of the port.
 
 The reference has no profiling of any kind (only keras ``verbose=1`` progress
-bars, reference infer.py:156, testing.py:263). Here, after the JAX package's
-``core/profiling.py``: a ``torch.profiler`` trace context that writes a
-chrome trace and a table of device time by kernel, plus a lightweight step
-timer that accumulates wall time and derives throughput counters without
-forcing a device sync on every step.
+bars, reference infer.py:156, testing.py:263). Here the port's layers mark
+their boundaries with two calls:
+
+- ``span(name)`` around a stage. With no ``torch.profiler`` session active it
+  is one flag check and a shared no-op context. Under a profiler it is
+  ``torch.profiler.record_function(name)``: a row of the profiler's own
+  timeline, on the clock of the device's kernel and copy rows, so the
+  device's idle stretches fall under the stage that left them. With
+  ``device=True`` it also records a pair of CUDA events on the current
+  stream around the block; their elapsed time is taken only when the
+  record is read, so the span adds no host synchronisation.
+- ``count(name, n)`` adds to the process's totals (always on, one dict
+  add, for operators and ``chip_smoke.py``) and, under a profiler, to the
+  record of the traced stretch.
+
+``record()`` gives the current traced stretch's counts and each device
+span's total device milliseconds. A stretch starts at the first span or
+count made under a profiler when none is open, and at the start of
+``trace``; it ends when the thread that started it makes a span or count
+with no profiler active, or when the record is read. So the record holds
+one stretch's events also when a process traces several. The profiler's
+state is per thread: a thread it does not cover (a build pool, the online
+loop's resolver) neither ends a stretch nor adds to its record.
+
+``trace(out_dir)`` runs the profiler over a block and writes ``trace.json``
+(a chrome trace, for Perfetto or chrome://tracing), ``key_averages.txt``
+(device time by kernel) and ``record.json`` (the record).
+
+The names (PERF.md, section 3, lists each with the metric or use that
+reads it): ``lcd.*`` the online loop and the serving engine, ``db.*`` the
+descriptor store, ``model.*`` the legs and heads, ``k1.*``/``k2.*``/
+``kernels.*`` the CUDA kernels and their build, ``gt.*`` the ground-truth
+engine, ``train.*`` the training loop.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
-import time
-from dataclasses import dataclass, field
+import threading
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _Tally:
+    """The process's totals and the current traced stretch's record."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.totals: dict[str, int] = {}
+        self.counts: dict[str, int] = {}
+        self.events: dict[str, list] = {}  # device span -> [(start, end) CUDA events]
+        self.owner: int | None = None  # the thread whose profiler opened the stretch
+
+    def restart(self) -> None:
+        """Open a fresh stretch, owned by the calling thread; under ``lock``."""
+        self.counts, self.events = {}, {}
+        self.owner = threading.get_ident()
+
+
+_tally = _Tally()
+
+
+def _tracing() -> bool:
+    """Whether a profiler covers the calling thread. Under one, with no
+    stretch open, this call opens one; with none, on the thread that opened
+    the open stretch, it ends it."""
+    on = torch.autograd._profiler_enabled()
+    if on:
+        if _tally.owner is None:
+            with _tally.lock:
+                if _tally.owner is None:
+                    _tally.restart()
+    elif _tally.owner is not None and _tally.owner == threading.get_ident():
+        with _tally.lock:
+            _tally.owner = None
+    return on
+
+
+def span(name: str, device: bool = False):
+    """A context marking a stage as ``name`` on the profiler's timeline;
+    ``device`` also times the block on the current CUDA stream. A shared
+    no-op context when no profiler is active."""
+    if not _tracing():
+        return _NO_SPAN
+    return _traced_span(name, device)
+
+
+@contextlib.contextmanager
+def _traced_span(name: str, device: bool):
+    with torch.profiler.record_function(name):
+        if not device:
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            yield
+        finally:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            with _tally.lock:
+                _tally.events.setdefault(name, []).append((start, end))
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name``: to the process's totals, and to the
+    record while a profiler covers the calling thread."""
+    traced = _tracing()
+    with _tally.lock:
+        _tally.totals[name] = _tally.totals.get(name, 0) + n
+        if traced:
+            _tally.counts[name] = _tally.counts.get(name, 0) + n
+
+
+def totals() -> dict[str, int]:
+    """The process's counter totals since it started."""
+    with _tally.lock:
+        return dict(_tally.totals)
+
+
+def record() -> dict:
+    """The current traced stretch: ``{"counts": {name: n}, "device_ms":
+    {span: total milliseconds}}``. Reading it waits for the device spans'
+    last events, and ends the stretch: the next span or count under a
+    profiler starts a fresh one."""
+    with _tally.lock:
+        _tally.owner = None
+        counts, events = dict(_tally.counts), dict(_tally.events)
+    device_ms = {}
+    for name, pairs in events.items():
+        total = 0.0
+        for start, end in pairs:
+            end.synchronize()
+            total += start.elapsed_time(end)
+        device_ms[name] = total
+    return {"counts": counts, "device_ms": device_ms}
 
 
 @contextlib.contextmanager
 def trace(out_dir: str | None):
     """torch.profiler over the block, written to ``out_dir`` as a chrome
-    trace (``trace.json``, for Perfetto or chrome://tracing) and a table of
-    device time by kernel (``key_averages.txt``); nothing when unset."""
+    trace (``trace.json``), a table of device time by kernel
+    (``key_averages.txt``) and the block's record (``record.json``);
+    nothing when unset."""
     if not out_dir:
         yield
         return
@@ -30,52 +156,11 @@ def trace(out_dir: str | None):
 
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with _tally.lock:
+            _tally.restart()
         yield
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
     with open(os.path.join(out_dir, "key_averages.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
-
-
-@dataclass
-class StepTimer:
-    """Accumulate per-step wall times and derive items/s.
-
-    Asynchronous-launch aware: ``stop`` waits for the device only when
-    ``sync`` is passed (a tensor: the current stream of its device is
-    synchronised, so the interval covers the work queued before it), and
-    never otherwise, so a loop that fetches once per epoch pays nothing per
-    step.
-    """
-
-    steps: int = 0
-    items: int = 0
-    total_s: float = 0.0
-    _t0: float = field(default=0.0, repr=False)
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def stop(self, items: int = 0, sync: torch.Tensor | None = None) -> float:
-        if sync is not None and sync.device.type == "cuda":
-            torch.cuda.current_stream(sync.device).synchronize()
-        dt = time.perf_counter() - self._t0
-        self.steps += 1
-        self.items += items
-        self.total_s += dt
-        return dt
-
-    @property
-    def items_per_sec(self) -> float:
-        return self.items / self.total_s if self.total_s > 0 else 0.0
-
-    @property
-    def sec_per_step(self) -> float:
-        return self.total_s / self.steps if self.steps else 0.0
-
-    def summary(self, prefix: str = "") -> dict:
-        p = f"{prefix}_" if prefix else ""
-        return {
-            f"{p}steps": self.steps,
-            f"{p}sec_per_step": self.sec_per_step,
-            f"{p}items_per_sec": self.items_per_sec,
-        }
+    with open(os.path.join(out_dir, "record.json"), "w") as f:
+        json.dump(record(), f, indent=1, sort_keys=True)

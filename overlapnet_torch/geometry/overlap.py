@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from overlapnet_torch.core.device import resolve_device
+from overlapnet_torch.core.profiling import count, span
 from overlapnet_torch.geometry import kitti
 from overlapnet_torch.geometry.projection import (
     DEFAULT_MAX_POINTS,
@@ -183,61 +184,69 @@ def com_overlap_yaw_all(
     if query_idxs is None:
         query_idxs = range(n)
     query_idxs = np.asarray(list(query_idxs), np.int32)
+    with span("gt.call"):
+        count("gt.calls")
+        with span("gt.prepare"):
+            if points is None:
+                points = load_scans_padded(scan_paths, max_points, io_workers)
+            pts_dev = torch.from_numpy(np.ascontiguousarray(points, np.float32)).to(device)
 
-    if points is None:
-        points = load_scans_padded(scan_paths, max_points, io_workers)
-    pts_dev = torch.from_numpy(np.ascontiguousarray(points, np.float32)).to(device)
+            # per-frame range images, valid counts and radii, in chunks of scans
+            ranges, valids, radii = [], [], []
+            for s in range(0, n, chunk_size):
+                r, v, rad = ranges_chunk(pts_dev[s : s + chunk_size])
+                ranges.append(r)
+                valids.append(v)
+                radii.append(rad)
+            ranges_dev, valid_dev = torch.cat(ranges), torch.cat(valids)
+            # the one early sync: per-frame max point radius for the far-pair gate
+            radius_host = torch.cat(radii).cpu().numpy().astype(np.float64)
+            planes = tuple(pts_dev[..., i].contiguous() for i in range(3))
+            del pts_dev
 
-    # per-frame range images, valid counts and radii, in chunks of scans
-    ranges, valids, radii = [], [], []
-    for s in range(0, n, chunk_size):
-        r, v, rad = ranges_chunk(pts_dev[s : s + chunk_size])
-        ranges.append(r)
-        valids.append(v)
-        radii.append(rad)
-    ranges_dev, valid_dev = torch.cat(ranges), torch.cat(valids)
-    # the one early sync: per-frame max point radius for the far-pair gate
-    radius_host = torch.cat(radii).cpu().numpy().astype(np.float64)
-    planes = tuple(pts_dev[..., i].contiguous() for i in range(3))
-    del pts_dev
+            q_ids = np.repeat(query_idxs, n).astype(np.int32)
+            r_ids = np.tile(np.arange(n, dtype=np.int32), len(query_idxs))
+            n_pairs = len(q_ids)
+            inv_poses = np.linalg.inv(poses)
 
-    q_ids = np.repeat(query_idxs, n).astype(np.int32)
-    r_ids = np.tile(np.arange(n, dtype=np.int32), len(query_idxs))
-    n_pairs = len(q_ids)
-    inv_poses = np.linalg.inv(poses)
+            # Exact far-pair gate: every reference point sits within radius R of the
+            # reference origin, so its depth in the query frame is >= |t| - R; if
+            # that already exceeds the projection's max_range, no re-projected point
+            # is valid and the overlap is identically zero (reference utils.py:76
+            # range filter): skip it. The 1 m slack absorbs the f32 round-off between
+            # this f64 host check and the device. |R_q^T (t_r - t_q)| == |t_r - t_q|:
+            # the gate needs only translation norms.
+            t_norm = np.linalg.norm(poses[r_ids][:, :3, 3] - poses[q_ids][:, :3, 3], axis=1)
+            live_pos = np.flatnonzero(t_norm - radius_host[r_ids] < MAX_RANGE + 1.0)
+        count("gt.pairs", n_pairs)
+        count("gt.live_pairs", len(live_pos))
 
-    # Exact far-pair gate: every reference point sits within radius R of the
-    # reference origin, so its depth in the query frame is >= |t| - R; if
-    # that already exceeds the projection's max_range, no re-projected point
-    # is valid and the overlap is identically zero (reference utils.py:76
-    # range filter): skip it. The 1 m slack absorbs the f32 round-off between
-    # this f64 host check and the device. |R_q^T (t_r - t_q)| == |t_r - t_q|:
-    # the gate needs only translation norms.
-    t_norm = np.linalg.norm(poses[r_ids][:, :3, 3] - poses[q_ids][:, :3, 3], axis=1)
-    live_pos = np.flatnonzero(t_norm - radius_host[r_ids] < MAX_RANGE + 1.0)
+        overlaps = np.zeros(n_pairs)
+        if len(live_pos):
+            def dev(a, dtype):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
-    overlaps = np.zeros(n_pairs)
-    if len(live_pos):
-        def dev(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+            with span("gt.dispatch"):
+                chunks = dispatch_chunks(
+                    planes, ranges_dev, valid_dev, dev(q_ids[live_pos], torch.int64),
+                    dev(r_ids[live_pos], torch.int64), dev(inv_poses, torch.float64),
+                    dev(poses, torch.float64), chunk_size)
+            with span("gt.fetch"):  # the single fetch of all chunk results
+                live = torch.cat(chunks).cpu().numpy()
+            overlaps[live_pos] = live
+            count("gt.nonzero_pairs", int(np.count_nonzero(live > 0)))
 
-        chunks = dispatch_chunks(
-            planes, ranges_dev, valid_dev, dev(q_ids[live_pos], torch.int64),
-            dev(r_ids[live_pos], torch.int64), dev(inv_poses, torch.float64),
-            dev(poses, torch.float64), chunk_size)
-        # the single fetch of all chunk results
-        overlaps[live_pos] = torch.cat(chunks).cpu().numpy()
+        with span("gt.yaw_table"):
+            yaws = _relative_yaws(poses[q_ids], poses[r_ids])
+            half = leg_output_width // 2
+            yaw_bins = np.trunc(-(yaws / np.pi) * half + half)
 
-    yaws = _relative_yaws(poses[q_ids], poses[r_ids])
-    half = leg_output_width // 2
-    yaw_bins = np.trunc(-(yaws / np.pi) * half + half)
-
-    gt = np.zeros((n_pairs, 4))
-    gt[:, 0] = q_ids
-    gt[:, 1] = r_ids
-    gt[:, 2] = overlaps
-    gt[:, 3] = yaw_bins
-    return gt
+            gt = np.zeros((n_pairs, 4))
+            gt[:, 0] = q_ids
+            gt[:, 1] = r_ids
+            gt[:, 2] = overlaps
+            gt[:, 3] = yaw_bins
+            return gt
 
 
 def com_overlap_yaw(

@@ -17,6 +17,8 @@ import subprocess
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
 
+from overlapnet_torch.core.profiling import count, span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -58,7 +60,9 @@ def build(name: str) -> str:
     os.close(fd)
     cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v",
            "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with span("kernels.build"):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    count("kernels.builds")
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(

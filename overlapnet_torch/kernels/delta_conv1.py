@@ -23,11 +23,11 @@ and runs K2 over groups of at most 32 columns, adding the groups' parts of
 da and dW in group order. The default legs (C = 128, W' // S = 24 or 30)
 take one call.
 
-``delta_conv1.launches`` counts calls of K1's C entry (each launches the
-weight split, then K1) and ``delta_conv1.backward_launches`` calls of K2's
-(each launches the split of the cotangent, the product kernels asked for and
-their reductions; one a column group), so a run
-can show that its main path went through the kernels.
+The counters ``k1.launches`` (calls of K1's C entry, each launching the
+weight split, then K1) and ``k2.launches`` (calls of K2's, each launching the
+split of the cotangent, the product kernels asked for and their reductions;
+one a column group) of ``core.profiling`` show that a run's main path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as nnf
 
+from overlapnet_torch.core.profiling import count
 from overlapnet_torch.kernels import build
 from overlapnet_torch.ops import delta as plain
 
@@ -156,7 +157,7 @@ def _launch_forward(
             f"delta_conv1 CUDA launch failed: "
             f"{f'CUresult {-err}' if err < 0 else f'cudaError {err}'}"
         )
-    delta_conv1.launches += 1
+    count("k1.launches")
     return out
 
 
@@ -262,7 +263,7 @@ def _launch_backward(a, b, kernel, g, j0: int, jc: int, need_volumes: bool,
             f"delta_conv1 backward CUDA launch failed: "
             f"{f'CUresult {-err}' if err < 0 else f'cudaError {err}'}"
         )
-    delta_conv1.backward_launches += 1
+    count("k2.launches")
     return da, db, dw
 
 
@@ -368,7 +369,3 @@ def delta_conv1(
     if kernel.dim() == 4:
         kernel = kernel[0]
     return DeltaConv1Function.apply(a, b, kernel, bias, stride)
-
-
-delta_conv1.launches = 0
-delta_conv1.backward_launches = 0

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from overlapnet_torch.core.device import resolve_device
+from overlapnet_torch.core.profiling import count, span
 from overlapnet_torch.ops.correlation import subbin_peak, yaw_confidence
 from overlapnet_torch.parallel.mesh import Mesh, all_gather, device_of, save_npz
 
@@ -80,22 +81,25 @@ class DescriptorDB:
         if n <= self._fv.shape[0]:
             return
         rows = min(self._capacity, max(n, 2 * self._fv.shape[0], 16))
-        grown = torch.zeros((rows,) + self._fv.shape[1:], device=self.device)
-        grown[: self._n] = self._fv[: self._n]
-        self._fv = grown
+        with span("db.grow"):
+            grown = torch.zeros((rows,) + self._fv.shape[1:], device=self.device)
+            grown[: self._n] = self._fv[: self._n]
+            self._fv = grown
+        count("db.grows")
 
     def add(self, fv) -> int:
         """Append one (W', C) or a batch (K, W', C) of embeddings; returns the
         first new index."""
-        fv = self._tensor(fv)
-        if fv.dim() == 2:
-            fv = fv[None]
-        k = fv.shape[0]
-        self._reserve(self._n + k)
-        self._fv[self._n : self._n + k] = fv
-        first = self._n
-        self._n += k
-        return first
+        with span("db.insert"):
+            fv = self._tensor(fv)
+            if fv.dim() == 2:
+                fv = fv[None]
+            k = fv.shape[0]
+            self._reserve(self._n + k)
+            self._fv[self._n : self._n + k] = fv
+            first = self._n
+            self._n += k
+            return first
 
     def load(self, fv) -> int:
         """Replace the whole store with ``fv`` (N, W', C); returns N."""
@@ -134,10 +138,12 @@ class DescriptorDB:
             overlap, logits = self._head(
                 fa[i : i + MAX_PAIRS_PER_CALL], fb[i : i + MAX_PAIRS_PER_CALL]
             )
-            outs.append(torch.stack(
-                [overlap.reshape(-1), subbin_peak(logits), yaw_confidence(logits)]
-            ))
-        res = torch.cat(outs, dim=1).cpu().numpy()
+            with span("db.fetch"):
+                outs.append(torch.stack(
+                    [overlap.reshape(-1), subbin_peak(logits), yaw_confidence(logits)]
+                ))
+        with span("db.fetch"):
+            res = torch.cat(outs, dim=1).cpu().numpy()
         return res[0], res[1], res[2]
 
     def score_volumes(self, fa, fb) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -164,8 +170,9 @@ class DescriptorDB:
         """
         if len(candidate_idxs) == 0:
             return (np.zeros(0, np.float32),) * 3
-        fa = self._fv[self._rows(candidate_idxs)]
-        q = self._tensor(query_fv)
+        with span("db.gather"):
+            fa = self._fv[self._rows(candidate_idxs)]
+            q = self._tensor(query_fv)
         return self._score(fa, q[None].expand_as(fa))
 
 
@@ -496,30 +503,31 @@ class ShardedDescriptorDB:
         with no candidate of its own (it offers overlap -1), so no rank waits
         on the host; on NCCL the collective is enqueued on the stream.
         """
-        if self._leg_embed is None:
-            raise RuntimeError("frame_step needs set_embedder() first")
-        row = self._n
-        if row >= self.capacity:
-            raise ValueError("ShardedDescriptorDB capacity exceeded")
-        rows = self._candidate_rows(candidate_mask)
-        fv = self._leg_embed(self._upload(np.asarray(image, np.float32))[None])[0]
-        if len(self._held(np.array([row]))):
-            self._fv[row % self._n_dev - self._first, row // self._n_dev] = fv
-        self._n += 1
-        if len(rows):
-            best = _packed_topk(*self._score_rows(fv, rows), 1)
-        elif self._mesh is None:  # nothing to score: the answer is known on the host
-            best = torch.tensor([[-1.0], [0.0], [0.0], [0.0]])
-        else:  # no candidate here; a device tensor for the gather
-            best = self._fv.new_zeros((4, 1))
-            best[0] = -1.0
-        if self._mesh is not None:
-            best = _merge_topk(all_gather(self._mesh, best), 1)
-        best = best[:, 0]
-        if best.device.type != "cuda":
-            return row, (best, None)
-        packed = torch.empty(4, dtype=torch.float32, pin_memory=True)
-        packed.copy_(best, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return row, (packed, event)
+        with span("db.frame_step"):
+            if self._leg_embed is None:
+                raise RuntimeError("frame_step needs set_embedder() first")
+            row = self._n
+            if row >= self.capacity:
+                raise ValueError("ShardedDescriptorDB capacity exceeded")
+            rows = self._candidate_rows(candidate_mask)
+            fv = self._leg_embed(self._upload(np.asarray(image, np.float32))[None])[0]
+            if len(self._held(np.array([row]))):
+                self._fv[row % self._n_dev - self._first, row // self._n_dev] = fv
+            self._n += 1
+            if len(rows):
+                best = _packed_topk(*self._score_rows(fv, rows), 1)
+            elif self._mesh is None:  # nothing to score: the answer is known on the host
+                best = torch.tensor([[-1.0], [0.0], [0.0], [0.0]])
+            else:  # no candidate here; a device tensor for the gather
+                best = self._fv.new_zeros((4, 1))
+                best[0] = -1.0
+            if self._mesh is not None:
+                best = _merge_topk(all_gather(self._mesh, best), 1)
+            best = best[:, 0]
+            if best.device.type != "cuda":
+                return row, (best, None)
+            packed = torch.empty(4, dtype=torch.float32, pin_memory=True)
+            packed.copy_(best, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            return row, (packed, event)

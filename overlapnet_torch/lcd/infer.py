@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from overlapnet_torch.core.config import OverlapNetConfig
+from overlapnet_torch.core.profiling import span
 from overlapnet_torch.data.dataset import assemble_scan_image
 from overlapnet_torch.lcd.descriptor_db import DescriptorDB, ShardedDescriptorDB
 from overlapnet_torch.models import build_model, leg_output_width
@@ -158,14 +159,15 @@ class Infer:
         return self._db.feature_volumes
 
     def _load_image(self, name: str) -> np.ndarray:
-        return assemble_scan_image(
-            self.cfg.data.data_root_folder,
-            self.cfg.data.infer_seqs,
-            os.path.basename(name).replace(".bin", ""),
-            self.cfg.channels,
-            self.cfg.model.input_height,
-            self.cfg.model.input_width,
-        )
+        with span("lcd.load_image"):
+            return assemble_scan_image(
+                self.cfg.data.data_root_folder,
+                self.cfg.data.infer_seqs,
+                os.path.basename(name).replace(".bin", ""),
+                self.cfg.channels,
+                self.cfg.model.input_height,
+                self.cfg.model.input_width,
+            )
 
     @torch.inference_mode()
     def create_feature_volumes(self, filenames: Sequence[str]) -> np.ndarray:
@@ -173,11 +175,12 @@ class Infer:
         (reference infer.py:240-265). Names without extension, e.g. '000000'.
         """
         imgs = np.stack([self._load_image(n) for n in filenames])
-        out = []
-        for i in range(0, len(imgs), MAX_SCANS_PER_CALL):
-            x = torch.from_numpy(imgs[i : i + MAX_SCANS_PER_CALL]).to(self.device)
-            out.append(self.model.encode(x).cpu())
-        return torch.cat(out).numpy()
+        with span("lcd.embed"):
+            out = []
+            for i in range(0, len(imgs), MAX_SCANS_PER_CALL):
+                x = torch.from_numpy(imgs[i : i + MAX_SCANS_PER_CALL]).to(self.device)
+                out.append(self.model.encode(x).cpu())
+            return torch.cat(out).numpy()
 
     # -- the reference entry points --------------------------------------
 
@@ -295,21 +298,22 @@ class Infer:
 
         On the plain store, or with a precomputed ``fv``, it is the
         synchronous :meth:`query_best` path and comes back resolved."""
-        n_cand = len(candidate_frame_ids)
-        if self.shards is not None and fv is None:
-            if image is None:
-                image = self._load_image(str(current_frame_id).zfill(6))
-            mask = self._mask_of(self._rows_of(candidate_frame_ids))
-            row, (packed, event) = self._db.frame_step(image, mask)
-            self._frame_rows[int(current_frame_id)] = row
-            self._row_frames[row] = int(current_frame_id)
-            return PendingFrame(self, current_frame_id, n_cand, packed, event)
-        if fv is None and image is not None:
-            with torch.inference_mode():
-                x = torch.as_tensor(image, dtype=torch.float32, device=self.device)
-                fv = self.model.encode(x[None])[0]
-        result = self.query_best(current_frame_id, candidate_frame_ids, fv=fv)
-        return PendingFrame(self, current_frame_id, n_cand, resolved=result)
+        with span("lcd.dispatch"):
+            n_cand = len(candidate_frame_ids)
+            if self.shards is not None and fv is None:
+                if image is None:
+                    image = self._load_image(str(current_frame_id).zfill(6))
+                mask = self._mask_of(self._rows_of(candidate_frame_ids))
+                row, (packed, event) = self._db.frame_step(image, mask)
+                self._frame_rows[int(current_frame_id)] = row
+                self._row_frames[row] = int(current_frame_id)
+                return PendingFrame(self, current_frame_id, n_cand, packed, event)
+            if fv is None and image is not None:
+                with torch.inference_mode():
+                    x = torch.as_tensor(image, dtype=torch.float32, device=self.device)
+                    fv = self.model.encode(x[None])[0]
+            result = self.query_best(current_frame_id, candidate_frame_ids, fv=fv)
+            return PendingFrame(self, current_frame_id, n_cand, resolved=result)
 
     # -- serving-session checkpoint ---------------------------------------
 

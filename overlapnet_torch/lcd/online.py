@@ -17,6 +17,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from overlapnet_torch.core.profiling import count, span
 from overlapnet_torch.lcd.gating import (
     CovarianceEllipse,
     candidate_mask,
@@ -80,25 +81,29 @@ class OnlineLoopCloser:
             )
         self._next_frame += 1
 
-        if self.covariances is not None:
-            ellipse = CovarianceEllipse.from_covariance(
-                self.covariances[idx][:2, :2], self.nstd
-            )
-        else:
-            # No covariance stream: unbounded search space (gating by
-            # inactive-map constraints only).
-            ellipse = CovarianceEllipse(np.inf, np.inf, 0.0)
+        with span("lcd.frame"):
+            with span("lcd.gate"):
+                if self.covariances is not None:
+                    ellipse = CovarianceEllipse.from_covariance(
+                        self.covariances[idx][:2, :2], self.nstd
+                    )
+                else:
+                    # No covariance stream: unbounded search space (gating by
+                    # inactive-map constraints only).
+                    ellipse = CovarianceEllipse(np.inf, np.inf, 0.0)
 
-        mask = candidate_mask(
-            idx,
-            self._positions,
-            self._traj_length,
-            ellipse,
-            self.inactive_time,
-            self.inactive_dist,
-        )
-        candidates = np.flatnonzero(mask)
-        return self.infer.dispatch_frame(idx, candidates.tolist())
+                mask = candidate_mask(
+                    idx,
+                    self._positions,
+                    self._traj_length,
+                    ellipse,
+                    self.inactive_time,
+                    self.inactive_dist,
+                )
+                candidates = np.flatnonzero(mask).tolist()
+            count("lcd.frames")
+            count("lcd.candidates", len(candidates))
+            return self.infer.dispatch_frame(idx, candidates)
 
     def _resolve(self, pending) -> LoopClosure | None:
         result = pending.result
@@ -158,16 +163,17 @@ class OnlineLoopCloser:
 
         def hand_over(item) -> None:
             deadline = time.monotonic() + RESOLVER_DEADLINE_S
-            while True:
-                try:
-                    work.put(item, timeout=min(0.5, RESOLVER_DEADLINE_S))
-                    return
-                except queue.Full:
-                    if time.monotonic() >= deadline:
-                        raise RuntimeError(
-                            f"the resolver thread took no frame for "
-                            f"{RESOLVER_DEADLINE_S} s"
-                        ) from None
+            with span("lcd.handover"):
+                while True:
+                    try:
+                        work.put(item, timeout=min(0.5, RESOLVER_DEADLINE_S))
+                        return
+                    except queue.Full:
+                        if time.monotonic() >= deadline:
+                            raise RuntimeError(
+                                f"the resolver thread took no frame for "
+                                f"{RESOLVER_DEADLINE_S} s"
+                            ) from None
 
         t.start()
         try:

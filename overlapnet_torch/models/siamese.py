@@ -15,6 +15,7 @@ import torch.nn as nn
 
 from overlapnet_torch.core.config import ModelConfig
 from overlapnet_torch.core.device import resolve_device
+from overlapnet_torch.core.profiling import count, span
 from overlapnet_torch.core.registry import HEADS, LEGS, MODELS
 from overlapnet_torch.models.heads import CorrelationHead, DeltaConv1OverlapHead
 from overlapnet_torch.models.legs import SiameseLegs
@@ -43,7 +44,9 @@ class OverlapNet(nn.Module):
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """One leg: (B, H, W, C) range image -> (B, W', 128) feature volume."""
-        return self.legs(x)
+        with span("model.legs"):
+            count("model.scans", x.shape[0])
+            return self.legs(x)
 
     def score(self, fa: torch.Tensor, fb: torch.Tensor, stop_gradient: bool | None = None):
         """Heads on cached feature volumes -> (overlap, orientation logits).
@@ -55,7 +58,10 @@ class OverlapNet(nn.Module):
             ga, gb = fa.detach(), fb.detach()
         else:
             ga, gb = fa, fb
-        return self.overlap_head(fa, fb), self.orientation_head(ga, gb)
+        with span("model.heads", device=fa.is_cuda):
+            count("model.head_calls")
+            count("model.pairs", fa.shape[0])
+            return self.overlap_head(fa, fb), self.orientation_head(ga, gb)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor, stop_gradient: bool | None = None):
         return self.score(self.encode(x1), self.encode(x2), stop_gradient)

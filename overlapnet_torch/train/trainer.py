@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from overlapnet_torch.core.config import OverlapNetConfig
+from overlapnet_torch.core.profiling import count, span
 from overlapnet_torch.models import OverlapNet, build_model, leg_output_width
 from overlapnet_torch.ops.correlation import subbin_peak
 from overlapnet_torch.ops.yaw import peak_to_degrees, ref_bins_to_degrees, target_bins
@@ -181,9 +182,10 @@ def _on_device(batch: Mapping, device: torch.device) -> dict[str, torch.Tensor]:
 def _local(batch: Mapping, mesh: Mesh | None, device: torch.device, dim: int = 0) -> dict:
     """The tensors of a step on ``device``: the whole batch, or with a mesh
     this rank's block of dimension ``dim`` of the global batch."""
-    if mesh is None:
-        return _on_device(batch, device)
-    return {k: put_sharded_dim(mesh, v, dim) for k, v in batch.items()}
+    with span("train.batch"):
+        if mesh is None:
+            return _on_device(batch, device)
+        return {k: put_sharded_dim(mesh, v, dim) for k, v in batch.items()}
 
 
 def _loss(cfg: OverlapNetConfig, model: OverlapNet, x1, x2, overlap, orientation,
@@ -244,10 +246,13 @@ def loss_and_grads(cfg: OverlapNetConfig, model: OverlapNet, x1, x2, overlap, or
 
 def _apply_step(cfg, tx: Optimizer, state: TrainState, x1, x2, overlap, orientation,
                 mesh: Mesh | None = None):
-    metrics, grads = loss_and_grads(cfg, state.model, x1, x2, overlap, orientation, mesh)
-    tx.update(dict(state.model.named_parameters()), grads, state.opt_state, state.step)
-    state.step += 1
-    return state, metrics
+    with span("train.step"):
+        count("train.steps")
+        count("train.pairs", x1.shape[0])
+        metrics, grads = loss_and_grads(cfg, state.model, x1, x2, overlap, orientation, mesh)
+        tx.update(dict(state.model.named_parameters()), grads, state.opt_state, state.step)
+        state.step += 1
+        return state, metrics
 
 
 def make_train_step(

@@ -13,6 +13,7 @@ noise (its float32 and float64 answers differ by 1.5 cm on the forged loop:
 """
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -22,7 +23,7 @@ import torch
 from overlapnet_tpu.models import init_params as jax_init_params
 from overlapnet_tpu.sim import e2e as je2e
 from overlapnet_tpu.train.checkpoint import save_params_npz
-from overlapnet_torch.core.profiling import StepTimer, trace
+from overlapnet_torch.core import profiling
 from overlapnet_torch.lcd.online import LoopClosure
 from overlapnet_torch.sim import e2e as te2e
 from overlapnet_torch.weights import load_npz
@@ -187,21 +188,22 @@ def test_train_and_eval_resumes_where_the_budget_stopped(seq, tmp_path):
 
 
 def test_step_timer_and_trace(tmp_path):
-    timer = StepTimer()
-    for items in (3, 5):
-        timer.start()
-        assert timer.stop(items, sync=torch.ones(2)) >= 0.0
-    assert (timer.steps, timer.items) == (2, 8)
-    assert timer.items_per_sec == pytest.approx(8 / timer.total_s)
-    assert timer.sec_per_step == pytest.approx(timer.total_s / 2)
-    assert set(timer.summary("train")) == {
-        "train_steps", "train_sec_per_step", "train_items_per_sec"}
-    assert StepTimer().summary() == {"steps": 0, "sec_per_step": 0.0, "items_per_sec": 0.0}
-    with trace(None):
-        pass
-    with trace(str(tmp_path / "prof")):
+    """``trace`` writes the chrome trace, the kernel table and the block's
+    record: the counts made inside it, and none from before it."""
+    profiling.count("test.trace", 5)
+    with profiling.trace(None):
+        profiling.count("test.trace")
+    with profiling.trace(str(tmp_path / "prof")):
         torch.ones(8).sum()
-    assert sorted(os.listdir(tmp_path / "prof")) == ["key_averages.txt", "trace.json"]
+        with profiling.span("test.span"):
+            profiling.count("test.trace", 2)
+    assert sorted(os.listdir(tmp_path / "prof")) == [
+        "key_averages.txt", "record.json", "trace.json"]
+    with open(tmp_path / "prof" / "record.json") as f:
+        assert json.load(f) == {"counts": {"test.trace": 2}, "device_ms": {}}
+    with open(tmp_path / "prof" / "trace.json") as f:
+        assert '"test.span"' in f.read()
+    assert profiling.totals()["test.trace"] >= 8
 
 
 @pytest.mark.slow
