@@ -15,16 +15,29 @@ Phases, each printing one JSON line:
 1. env: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the time to build every CUDA kernel of the port (nvcc,
    from the sources in this checkout).
-2. kernel: K1 (fused delta + c_conv1, 3xTF32 on the tensor cores) against
-   its plain PyTorch version (fp32, TF32 off) within rtol/atol 1e-4 in every
-   form the serving path gives it: B = 32 at W' = 360 and 450, one query
-   expanded over 32 candidates (batch stride 0, as ``DescriptorDB.query``),
-   no bias, B = 1, and B = 256 (the head's batch). Each form is timed with
-   CUDA events; W' = 360 and 450 also time the plain version and one
-   torch.matmul of the materialized contraction (the library yardstick,
-   never called by the port). Bounds: operations at the TF32 dense rate
-   (``bound_ms``), at three TF32 passes (``bound_3xtf32_ms``) and in fp32 on
-   the CUDA cores (``bound_fp32_simt_ms``), each against the bytes bound.
+2. kernel: K1 (fused delta + c_conv1 on the bf16 tensor cores) against its
+   plain PyTorch version (fp32, TF32 off) within rtol/atol 1e-4 in every
+   form the serving path gives it, on float32 volumes (K1's general path:
+   B = 32 at W' = 360 and 450, one query expanded over 32 candidates (batch
+   stride 0, as ``DescriptorDB.query``), no bias, B = 1, and B = 256, the
+   head's batch) and on bf16-valued volumes, the bf16 legs' output (its
+   exact path: B = 32 and 256 at W' = 360 and 450, one query over 256
+   candidates, B = 1), and on bf16-valued volumes with an offset of 3, 5,
+   10 and 30 over a spread of 1 (the exact path up to a cancellation ratio
+   of 8, the general path past it) and a batch of both. Each form's pairs
+   (16 of them) are also held to the plain version in float64 at a relative
+   norm of 1e-5, the benchmark's ``k1_err`` limit. Gates beside the error:
+   the device counter ``k1.exact_calls`` shows that a call took the exact
+   path on every pair exactly where ``exact_pairs`` says so, and two calls
+   give the same bits. Each form is
+   timed with CUDA events (at B = 256 also each kernel row, by the
+   profiler); W' = 360 and 450 on float32 volumes also time the plain
+   version and one torch.matmul of the materialized contraction (the
+   library yardstick, never called by the port). Bounds: the path's floor
+   (``floor_ms``: three bf16 products a pair on the exact path, six on the
+   general one), operations at the TF32 dense rate (``bound_ms``), at three TF32
+   passes (``bound_3xtf32_ms``) and in fp32 on the CUDA cores
+   (``bound_fp32_simt_ms``), each against the bytes bound.
 3. model: the default 64x900x4 model (bf16 legs, W' = 360), seeded weights,
    served through ``Infer(device="cuda")``: infer_one, infer_multiple of one
    query against 64 references, query_best and infer_multiple_vs_multiple.
@@ -121,7 +134,11 @@ Phases, each printing one JSON line:
    0.8 of the untrained, loop-closure F1 >= 0.9, false positives <= true
    positives, yaw error p50 <= 2 degrees, ATE after <= 1.2 x before); K1
    once per train step and evaluated batch and K2 once per train step in
-   training, K1 in loop closing; (b) ``cli evaluate``'s ``evaluate()`` on the
+   training, K1 in loop closing; K1 on the trained legs' features and
+   c_conv1 (each frame against the next and against the frame half the run
+   away) within 1e-5 of the float64 plain version on every pair (relative
+   norm), with the pairs' cancellation ratios and paths printed (also when
+   a floor fails); (b) ``cli evaluate``'s ``evaluate()`` on the
    run's validation set with its ``trained_params.npz``: overlap RMS within
    1e-3 of ``Trainer.evaluate``'s; (c) the pose graph at KITTI 00's length
    (4,541 poses, 200 yaw-only closures, 5 gross outliers, 30 iterations of
@@ -272,48 +289,145 @@ def phase_env(torch, build):
     return smi, name
 
 
-def volume(torch, rng, bsz: int, w: int, c: int = C):
-    """A (B, W', C) leg-feature-scale volume (ReLU outputs) on the card."""
-    return torch.from_numpy(np.maximum(rng.normal(size=(bsz, w, c)), 0).astype(np.float32)).cuda()
+def volume(torch, rng, bsz: int, w: int, c: int = C, offset=0):
+    """A (B, W', C) leg-feature-scale volume on the card: ReLU outputs, or
+    normals of mean ``offset`` and spread 1; "mixed": the batch's second
+    half with an offset of 30."""
+    x = rng.normal(size=(bsz, w, c))
+    if offset == "mixed":
+        x[: bsz // 2] = np.maximum(x[: bsz // 2], 0)
+        x[bsz // 2:] += 30
+    else:
+        x = x + offset if offset else np.maximum(x, 0)
+    return torch.from_numpy(x.astype(np.float32)).cuda()
+
+
+def k1_pair_errors(torch, plain, out, a, b, kern, bias) -> list[float]:
+    """Relative norm of K1's error on each of up to K1_FP64_PAIRS pairs
+    (spread over the batch) against the plain version in float64."""
+    idx = np.unique(np.linspace(0, a.shape[0] - 1, K1_FP64_PAIRS).round().astype(int))
+    sel = torch.from_numpy(idx).cuda()
+    ref = plain.delta_conv1(a[sel].double(), b[sel].double(), kern.double(),
+                            None if bias is None else bias.double(), stride=S)
+    d = (out[sel].double() - ref).flatten(1).norm(dim=1) / ref.flatten(1).norm(dim=1)
+    return [float(x) for x in d]
 
 
 # (form, B, W', right volume expanded from one query, bias, timed beside the
-# plain version and the library call)
+# plain version and the library call, volumes of bf16 values, offset).
+# Float32 volumes take K1's general path, bf16-valued ones (the bf16 legs'
+# output) its exact path where a pair's cancellation ratio allows. Volumes
+# are ReLU'd normals, or with an offset normals of that mean and spread 1
+# (features that share an offset: the exact path's worst case, which the
+# ratio sends down the general path past ROUTE_RATIO); "mixed" gives the
+# second half of the batch an offset of 30 and the first none.
 K1_FORMS = [
-    ("b32_w360", 32, 360, False, True, True),
-    ("b32_w450", 32, 450, False, True, True),
-    ("query_stride0_b32_w360", 32, 360, True, True, False),
-    ("no_bias_b32_w360", 32, 360, False, False, False),
-    ("b1_w360", 1, 360, False, True, False),
-    ("b256_w360", 256, 360, False, True, False),
+    ("b32_w360", 32, 360, False, True, True, False, 0),
+    ("b32_w450", 32, 450, False, True, True, False, 0),
+    ("query_stride0_b32_w360", 32, 360, True, True, False, False, 0),
+    ("no_bias_b32_w360", 32, 360, False, False, False, False, 0),
+    ("b1_w360", 1, 360, False, True, False, False, 0),
+    ("b256_w360", 256, 360, False, True, False, False, 0),
+    ("bf16_b32_w360", 32, 360, False, True, False, True, 0),
+    ("bf16_b32_w450", 32, 450, False, True, False, True, 0),
+    ("bf16_query_stride0_b256_w360", 256, 360, True, True, False, True, 0),
+    ("bf16_b1_w360", 1, 360, False, True, False, True, 0),
+    ("bf16_b256_w360", 256, 360, False, True, False, True, 0),
+    ("bf16_b256_w450", 256, 450, False, True, False, True, 0),
+    ("bf16_offset3_b32_w360", 32, 360, False, True, False, True, 3),
+    ("bf16_offset5_b32_w360", 32, 360, False, True, False, True, 5),
+    ("bf16_offset10_b32_w360", 32, 360, False, True, False, True, 10),
+    ("bf16_offset30_b32_w360", 32, 360, False, True, False, True, 30),
+    ("bf16_offset30_query_stride0_b32_w360", 32, 360, True, True, False, True, 30),
+    ("bf16_mixed_b32_w360", 32, 360, False, True, False, True, "mixed"),
 ]
+# K1's gate on each pair against the plain version in float64: the relative
+# norm of the difference, as the benchmark's k1_err reads it (its limit)
+K1_REL_LIMIT = 1e-5
+K1_FP64_PAIRS = 16  # pairs of a form held to the float64 plain version
+# K1's kernel rows (the pre-pass, the routes, the weight split, the product)
+K1_ROWS = ("split_weight_kernel_sides", "split_weight_kernel_route", "split_weight_kernel",
+           "delta_conv1_kernel")
+
+
+def k1_rows_ms(torch, fn, iters: int = 5) -> dict | None:
+    """Device milliseconds a call of each of K1's kernel rows (profiler),
+    over ``iters`` calls; None when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    got = {}
+    for e in prof.key_averages():
+        row = next((r for r in K1_ROWS if r in e.key), None)
+        if row is not None and e.self_device_time_total > 0:
+            got[row] = got.get(row, 0.0) + e.self_device_time_total / 1e3 / iters
+    return got or None
+
+
+def exact_calls() -> int:
+    """K1's calls so far that took its exact path (the device counter)."""
+    from overlapnet_torch.core.profiling import totals
+
+    return totals().get("k1.exact_calls", 0)
 
 
 def phase_kernel(torch, k1, plain, name, smi):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     peak_fp32, peak_tf32, peak_bw = card_peaks(name)
+    peak_bf16 = 2 * peak_tf32  # dense bf16 is twice TF32 on Hopper (989 / 495)
     rows = {}
-    for form, bsz, w, query, with_bias, yardsticks in K1_FORMS:
+    for form, bsz, w, query, with_bias, yardsticks, bf16, offset in K1_FORMS:
         j = w // S
-        rng = np.random.default_rng(w)
-        a = volume(torch, rng, bsz, w)
-        b = volume(torch, rng, 1, w).expand(bsz, w, C) if query else volume(torch, rng, bsz, w)
+        rng = np.random.default_rng(w + 1000 * bf16 + bsz + 7 * len(form))
+        a = volume(torch, rng, bsz, w, offset=offset)
+        b = (volume(torch, rng, 1, w, offset=offset).expand(bsz, w, C) if query
+             else volume(torch, rng, bsz, w, offset=offset))
+        if bf16:
+            a = a.bfloat16().float()
+            b = b.bfloat16().float()
         # glorot-scale weights, as the head's init
         limit = math.sqrt(6.0 / (S * C + S * F))
         kern = torch.from_numpy(rng.uniform(-limit, limit, size=(S, C, F)).astype(np.float32)).cuda()
         bias = torch.from_numpy(rng.normal(size=(F,)).astype(np.float32) * 0.1).cuda()
         bias = bias if with_bias else None
+        if k1.exact_operands(a, b, S) != bf16:
+            raise RuntimeError(f"{form}: exact_operands says {not bf16}")
+        pairs = k1.exact_pairs(a, b, kern, S)
+        exact = bool(pairs.all())
+        rho = k1.cancellation_ratio(a, b, kern, S)
 
+        before = exact_calls()
         out = k1.delta_conv1(a, b, kern, bias, stride=S)
+        again = k1.delta_conv1(a, b, kern, bias, stride=S)
         torch.cuda.synchronize()
+        took_exact = exact_calls() - before
+        if took_exact != 2 * exact:
+            raise RuntimeError(f"{form}: {took_exact} of 2 calls took the exact path on "
+                               f"every pair, the volumes say {'both' if exact else 'none'}")
+        if not torch.equal(out, again):
+            raise RuntimeError(f"{form}: two calls of K1 gave different bits")
         ref = plain.delta_conv1(a, b, kern, bias, stride=S)
         err = float((out - ref).abs().max())
+        rel_err = float((out - ref).norm() / ref.norm())
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
-        del out, ref
+        pair_errs = k1_pair_errors(torch, plain, out, a, b, kern, bias)
+        if max(pair_errs) > K1_REL_LIMIT:
+            raise RuntimeError(f"{form}: a pair's relative error {max(pair_errs)} against the "
+                               f"float64 plain version passes {K1_REL_LIMIT}")
+        del out, again, ref
 
-        kernel_ms = time_ms(torch, lambda: k1.delta_conv1(a, b, kern, bias, stride=S), 20)
-        row = {"max_abs_err": err, "ms": kernel_ms}
+        call = lambda: k1.delta_conv1(a, b, kern, bias, stride=S)  # noqa: E731
+        kernel_ms = time_ms(torch, call, 20)
+        row = {"max_abs_err": err, "rel_norm_err": rel_err, "ms": kernel_ms,
+               "path": "exact" if exact else "general" if not pairs.any() else "mixed",
+               "exact_pairs": int(pairs.sum()), "rho_max": float(rho.max()),
+               "rho_min": float(rho.min()), "worst_pair_rel_err_fp64": max(pair_errs)}
+        if bsz == 256:
+            row["rows_ms"] = k1_rows_ms(torch, call)
         if yardsticks:
             row["plain_ms"] = time_ms(
                 torch, lambda: plain.delta_conv1(a, b, kern, bias, stride=S), 5)
@@ -331,21 +445,43 @@ def phase_kernel(torch, k1, plain, name, smi):
                       + bsz * w * j * F)
         t_bytes = nbytes / peak_bw * 1e3
         t_tf32 = flops / peak_tf32 * 1e3
+        # the path's floor: three exact bf16 products a pair, or six (the
+        # tensor-core work of 3xTF32)
+        products = 3 + 3 * (1 - float(pairs.float().mean()))
+        floor_ms = max(products * flops / peak_bf16 * 1e3, t_bytes)
         row.update({
             "bound_ms": max(t_tf32, t_bytes),
             "bound_by": "operations" if t_tf32 >= t_bytes else "bytes",
             "bound_3xtf32_ms": max(3 * t_tf32, t_bytes),
             "bound_fp32_simt_ms": max(flops / peak_fp32 * 1e3, t_bytes),
+            "floor_ms": floor_ms,
         })
         rows[form] = row
         emit({
             "phase": "kernel", "kernel": "delta_conv1", "form": form, "w": w, "j": j,
             "batch": bsz, "b_batch_stride": b.stride(0), "bias": with_bias,
+            "bf16_values": bf16, "offset": offset, "exact_calls_of_2": took_exact,
             "channels": C, "stride": S, "features": F, "rtol": 1e-4, "atol": 1e-4,
             **row, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
             "kernel_tflops": flops / kernel_ms / 1e9, "peak_tf32_tflops": peak_tf32 / 1e12,
+            "share_of_floor": floor_ms / kernel_ms,
             "share_of_3xtf32_bound": row["bound_3xtf32_ms"] / kernel_ms, "card": smi,
         })
+    # C = 96, which the wrapper zero-pads to the kernel's 64-channel chunks,
+    # on both paths and with a query expanded over the batch; untimed
+    rng = np.random.default_rng(96)
+    for values in ("float32", "bf16"):
+        a = volume(torch, rng, 4, 360, 96)
+        b = volume(torch, rng, 1, 360, 96).expand(4, 360, 96)
+        if values == "bf16":
+            a, b = a.bfloat16().float(), b.bfloat16().float()
+        kern = torch.from_numpy(rng.normal(size=(S, 96, F)).astype(np.float32) * 0.02).cuda()
+        out = k1.delta_conv1(a, b, kern, None, stride=S)
+        ref = plain.delta_conv1(a, b, kern, None, stride=S)
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+        emit({"phase": "kernel", "kernel": "delta_conv1", "form": f"c96_query_stride0_b4_{values}",
+              "path": "exact" if k1.exact_operands(a, b, S) else "general",
+              "max_abs_err": float((out - ref).abs().max()), "card": smi})
     return rows
 
 
@@ -1050,9 +1186,10 @@ def phase_train(torch, smi):
                                f"vs {on['cpu'][0]}")
         # each gradient within GRAD_GATE of its tensor's largest magnitude.
         # 2e-3, not 1e-3: the overlap loss is a sigmoid of 24 x the error, so
-        # the head's gradients carry the forward's differences (K1 is 3xTF32
-        # on the card, fp32 on the CPU) some hundred times enlarged; c_conv3
-        # was measured at 1.05e-3 on an H100
+        # the head's gradients carry the forward's differences (K1's general
+        # path on the card, |a - b| in three bf16 pieces against W in three;
+        # fp32 on the CPU) some hundred times enlarged; c_conv3 was measured
+        # at 1.05e-3 on an H100
         rel = {}
         for name, g_cpu in on["cpu"][1].items():
             scale = float(g_cpu.abs().max())
@@ -1443,6 +1580,53 @@ def loop_graph(n: int = PG_POSES, seed: int = 7):
     return gt, est, odometry_edges(est).merged(closures_to_edges(closures, n))
 
 
+def k1_on_trained_features(torch, cfg, work: str) -> dict:
+    """K1 on the features of the legs ``run_e2e`` trained (bf16 legs), with
+    its trained c_conv1: each of the run's frames against the next (close
+    scans, the most cancellation) and against the frame half the run away,
+    every pair held to the plain version in float64 (relative norm). Also
+    the pairs' cancellation ratios and how many took the exact path."""
+    from overlapnet_torch.kernels import delta_conv1 as k1
+    from overlapnet_torch.lcd.infer import Infer
+    from overlapnet_torch.ops import delta as plain
+    from overlapnet_torch.weights import load_npz
+
+    params = load_npz(os.path.join(work, "trained_params.npz"))
+    infer = Infer(cfg, params=params, db_capacity=16, device="cuda", shards=1)
+    fv = torch.from_numpy(infer.create_feature_volumes(
+        [f"{i:06d}" for i in range(E2E_FRAMES)])).cuda()
+    head = next(mod for mod in infer.model.modules() if hasattr(mod, "c_conv1"))
+    kern = head.c_conv1.weight.detach()[:, :, 0, :].permute(2, 1, 0).float().contiguous()
+    bias = head.c_conv1.bias.detach().float().contiguous()
+    n = fv.shape[0]
+    a = torch.cat([fv, fv]).contiguous()
+    b = torch.cat([fv.roll(-1, 0), fv.roll(n // 2, 0)]).contiguous()
+    with torch.no_grad():
+        before = exact_calls()
+        out = k1.delta_conv1(a, b, kern, bias, stride=S)
+        torch.cuda.synchronize()
+        took_exact = exact_calls() - before
+        ref = plain.delta_conv1(a.double(), b.double(), kern.double(), bias.double(), stride=S)
+        errs = ((out.double() - ref).flatten(1).norm(dim=1) / ref.flatten(1).norm(dim=1)).cpu()
+    pairs = k1.exact_pairs(a, b, kern, S)
+    rho = k1.cancellation_ratio(a, b, kern, S).cpu()
+    if took_exact != int(bool(pairs.all())):
+        raise RuntimeError(f"K1 on trained features: the call counted {took_exact} exact, "
+                           f"{int(pairs.sum())} of {len(pairs)} pairs should take the exact path")
+    exact_errs, general_errs = errs[pairs], errs[~pairs]
+    return {
+        "pairs": len(pairs), "exact_pairs": int(pairs.sum()),
+        "bf16_values": k1.exact_operands(a, b, S),
+        "rho_quantiles_0_50_90_100": [float(x) for x in torch.quantile(
+            rho, torch.tensor([0.0, 0.5, 0.9, 1.0], dtype=rho.dtype))],
+        "worst_pair_rel_err_fp64": float(errs.max()),
+        "worst_exact_pair_rel_err_fp64": float(exact_errs.max()) if len(exact_errs) else None,
+        "worst_general_pair_rel_err_fp64":
+            float(general_errs.max()) if len(general_errs) else None,
+        "limit": K1_REL_LIMIT,
+    }
+
+
 def phase_e2e(torch, smi):
     """The sim e2e harness on the card: (a) ``run_e2e`` at full width, (b)
     ``cli evaluate`` on its validation set, (c) the pose graph at KITTI 00's
@@ -1494,8 +1678,13 @@ def phase_e2e(torch, smi):
             "ate_after_at_most_1.2_before": m["ate_after_m"] <= 1.2 * m["ate_before_m"],
         }
         print(json.dumps({"e2e_metrics": m}, default=float), flush=True)
+        cfg = e2e.make_config(work, batch_size=E2E_BATCH, no_epochs=E2E_EPOCHS)
+        trained_k1 = k1_on_trained_features(torch, cfg, work)
+        print(json.dumps({"k1_on_trained_features": trained_k1}), flush=True)
         if not all(floors.values()):
             raise RuntimeError(f"e2e floors failed: {floors}")
+        if trained_k1["worst_pair_rel_err_fp64"] > K1_REL_LIMIT:
+            raise RuntimeError(f"K1 on the trained legs' features: {trained_k1}")
         steps = E2E_EPOCHS * (m["train_n_train_pairs"] // E2E_BATCH)
         eval_batches = 2 * math.ceil(m["train_n_val_pairs"] / E2E_BATCH)  # untrained, trained
         train = stages["train_and_eval"]
@@ -1509,7 +1698,6 @@ def phase_e2e(torch, smi):
         # ---- (b) cli evaluate's evaluate() on the run's validation set with
         # its trained_params.npz (network.yml cannot name the harness's
         # cosine head, so the harness's own config is passed)
-        cfg = e2e.make_config(work, batch_size=E2E_BATCH, no_epochs=E2E_EPOCHS)
         cfg.data.training_seqs = [e2e.SEQ]
         params = load_npz(os.path.join(work, "trained_params.npz"))
         k_start = kernel_launches()
@@ -1567,6 +1755,7 @@ def phase_e2e(torch, smi):
         f"make_config overrides (cosine head, adam 3e-4), {E2E_FRAMES} sim frames, "
         f"{E2E_EPOCHS} epochs, batch {E2E_BATCH}",
         "run_e2e_s": run_s, "stages": stages, "floors": floors, "launches": harness,
+        "k1_on_trained_features": trained_k1,
         "train_steps": steps, "eval_batches": eval_batches,
         "lcd_f1": m["lcd_f1"], "lcd_yaw_rmse_deg": m["lcd_yaw_rmse_deg"],
         "lcd_yaw_err_p50_deg": m.get("lcd_yaw_err_p50_deg"),
@@ -2059,6 +2248,9 @@ def main(argv: list[str]) -> int:
         "launches_by_phase": k1_launches, "shape": "B=32, W'=360",
         **{k: fwd["b32_w360"][k] for k in keys},
         "max_abs_err_all_forms": max(r["max_abs_err"] for r in fwd.values()),
+        "exact_path": {f: {k: fwd[f][k] for k in ("ms", "floor_ms", "max_abs_err")}
+                       for f in ("bf16_b32_w360", "bf16_b256_w360",
+                                 "bf16_query_stride0_b256_w360")},
     }, {
         "name": k1.BWD_NAME, "route": "cuda", "source": k1.BWD_SOURCE,
         "replaces": tpu_kernel_site(k1.BWD_REPLACES, marker="_core_bwd"),

@@ -15,6 +15,10 @@ their boundaries with two calls:
 - ``count(name, n)`` adds to the process's totals (always on, one dict
   add, for operators and ``chip_smoke.py``) and, under a profiler, to the
   record of the traced stretch.
+- ``device_counter(name, device)`` is a counter that a kernel adds to on
+  the device, for what only the device knows (which path K1 took). The
+  host never waits for it on the way: ``totals()`` and ``record()`` copy
+  it to the host when they are read, and only then.
 
 ``record()`` gives the current traced stretch's counts and each device
 span's total device milliseconds. A stretch starts at the first span or
@@ -57,10 +61,14 @@ class _Tally:
         self.counts: dict[str, int] = {}
         self.events: dict[str, list] = {}  # device span -> [(start, end) CUDA events]
         self.owner: int | None = None  # the thread whose profiler opened the stretch
+        # device counters, (name, device) -> int64 tensor; and each one's
+        # value where the stretch first used it (a copy on the device)
+        self.device: dict[tuple[str, str], torch.Tensor] = {}
+        self.bases: dict[tuple[str, str], torch.Tensor] = {}
 
     def restart(self) -> None:
         """Open a fresh stretch, owned by the calling thread; under ``lock``."""
-        self.counts, self.events = {}, {}
+        self.counts, self.events, self.bases = {}, {}, {}
         self.owner = threading.get_ident()
 
 
@@ -119,20 +127,48 @@ def count(name: str, n: int = 1) -> None:
             _tally.counts[name] = _tally.counts.get(name, 0) + n
 
 
-def totals() -> dict[str, int]:
-    """The process's counter totals since it started."""
+def device_counter(name: str, device: torch.device | str) -> torch.Tensor:
+    """The one-element int64 counter ``name`` on ``device``, zero at first
+    use, for a kernel to add to. Under a profiler the traced stretch keeps
+    a device-side copy of its value at the stretch's first use, so that
+    ``record()`` gives what the stretch added; nothing waits for it here."""
+    traced = _tracing()
+    key = (name, str(torch.device(device)))
     with _tally.lock:
-        return dict(_tally.totals)
+        t = _tally.device.get(key)
+        if t is None:
+            t = _tally.device[key] = torch.zeros(1, dtype=torch.int64, device=device)
+        if traced and key not in _tally.bases:
+            _tally.bases[key] = t.clone()
+        return t
+
+
+def _add_device(into: dict[str, int], pairs) -> None:
+    """Adds each (name, value tensor) to ``into``: a copy to the host."""
+    for name, value in pairs:
+        into[name] = into.get(name, 0) + int(value.item())
+
+
+def totals() -> dict[str, int]:
+    """The process's counter totals since it started, device counters
+    included (reading them waits for the work queued before)."""
+    with _tally.lock:
+        out, device = dict(_tally.totals), list(_tally.device.items())
+    _add_device(out, ((name, t) for (name, _), t in device))
+    return out
 
 
 def record() -> dict:
     """The current traced stretch: ``{"counts": {name: n}, "device_ms":
-    {span: total milliseconds}}``. Reading it waits for the device spans'
-    last events, and ends the stretch: the next span or count under a
-    profiler starts a fresh one."""
+    {span: total milliseconds}}``, the counts with what each device counter
+    gained in the stretch. Reading it waits for the device spans' last
+    events and the device counters, and ends the stretch: the next span or
+    count under a profiler starts a fresh one."""
     with _tally.lock:
         _tally.owner = None
         counts, events = dict(_tally.counts), dict(_tally.events)
+        grown = [(key[0], _tally.device[key] - base) for key, base in _tally.bases.items()]
+    _add_device(counts, grown)
     device_ms = {}
     for name, pairs in events.items():
         total = 0.0

@@ -1,10 +1,36 @@
 """K1 and K2: fused DeltaLayer + c_conv1 and its backward, hand-written CUDA
 kernels for Hopper.
 
-``delta_conv1`` launches ``csrc/delta_conv1.cu`` (K1, 3xTF32 on the tensor
-cores) for CUDA tensors and runs the plain PyTorch version
-(``ops.delta.delta_conv1``) for CPU tensors: the tensor's device decides,
-nothing else. On a CUDA tensor it launches the kernel or raises.
+``delta_conv1`` launches ``csrc/delta_conv1.cu`` (K1) for CUDA tensors and
+runs the plain PyTorch version (``ops.delta.delta_conv1``) for CPU tensors:
+the tensor's device decides, nothing else. On a CUDA tensor it launches the
+kernel or raises.
+
+K1 computes ``sum W |a - b|`` as ``L_a + L_b - 2 sum W min(a, b)``, which
+is the same number (``|x - y| = x + y - 2 min(x, y)``): ``L_a = a . sum_k W``
+and ``L_b = sum W b`` cost 1/360 of the product each, and the product runs
+on the bf16 tensor cores with exact operands. The legs hand over bf16 values
+in float32, and the min of two bf16 values is one of them: one exact bf16
+piece, against W as three exact bf16 pieces (truncation splits), every
+partial product exact in float32 and the sums in float32. Three bf16
+products at 989 TFLOP/s take the place of 3xTF32's three at 495: the floor
+at B = 256, W' = 360 falls from 3.35 to 1.65 ms.
+
+The price is cancellation. The exact path's rounding is a few float32 ulps
+of L and of the min term, not of the output, so its error against the
+output grows with a pair's cancellation ratio rho (``cancellation_ratio``:
+the size of L_a and L_b over the spread of L_a - L_b, which is about the
+output's), and features that share an offset have a large one. So each pair
+takes the exact path only where rho <= ``ROUTE_RATIO`` (8), and K1's error
+stays within a few times 1e-6 of the output's norm there; 3xTF32, before,
+was within about 6e-7 on the same volumes. That is not float32 accuracy.
+Any other pair, and every pair of a call whose volumes hold a value that is
+not bf16 (float32 legs, test volumes), takes the general path in the same
+kernel: |a - b| split into three bf16 pieces and the six products of order
+<= 2, the tensor-core work of 3xTF32, with no cancellation. A pre-pass makes
+both decisions on the device, with no host sync (``exact_operands`` and
+``exact_pairs`` are the same tests in plain PyTorch). Nothing else chooses
+the path: no argument, setting or configuration.
 
 On the card the call goes through ``DeltaConv1Function``, a
 ``torch.autograd.Function``: its forward launches K1 and saves only the two
@@ -24,10 +50,11 @@ da and dW in group order. The default legs (C = 128, W' // S = 24 or 30)
 take one call.
 
 The counters ``k1.launches`` (calls of K1's C entry, each launching the
-weight split, then K1) and ``k2.launches`` (calls of K2's, each launching the
-split of the cotangent, the product kernels asked for and their reductions;
-one a column group) of ``core.profiling`` show that a run's main path went
-through the kernels.
+weight split, the pre-pass, the routes, then K1) and ``k2.launches`` (calls of K2's,
+each launching the split of the cotangent, the product kernels asked for and
+their reductions; one a column group) of ``core.profiling`` show that a
+run's main path went through the kernels; the device counter
+``k1.exact_calls`` counts K1's calls whose every pair took the exact path.
 """
 
 from __future__ import annotations
@@ -39,7 +66,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as nnf
 
-from overlapnet_torch.core.profiling import count
+from overlapnet_torch.core.profiling import count, device_counter
 from overlapnet_torch.kernels import build
 from overlapnet_torch.ops import delta as plain
 
@@ -49,6 +76,7 @@ SOURCE = "overlapnet_torch/csrc/delta_conv1.cu"
 REPLACES = "ops/pallas_delta.py:54"
 FEATURES = 64  # F the kernels take (c_conv1's width)
 CHANNEL_CHUNK = 32  # K1: C must be a multiple of this
+KERNEL_CHUNK = 64  # K1's C entry: C a multiple of this (the wrapper pads)
 # K2
 BWD_NAME = "delta_conv1_bwd"
 BWD_SOURCE = "overlapnet_torch/csrc/delta_conv1_bwd.cu"
@@ -56,15 +84,74 @@ BWD_REPLACES = "ops/pallas_delta.py:114"  # _core_bwd, the custom VJP of K1
 BWD_CHANNEL_CHUNK = 128  # K2's C entry: C a multiple of this (the wrapper pads)
 BWD_MAX_J = 32  # K2's C entry: right columns a call (the wrapper groups)
 INVALID_VALUE = 1  # cudaErrorInvalidValue: sizes the kernel does not take
+ROUTE_RATIO = 8.0  # K1's exact path takes a pair whose cancellation ratio is at most this
 
 @functools.cache
 def _entry():
     fn = build.load(NAME).delta_conv1_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _scratch_bytes():
+    fn = build.load(NAME).delta_conv1_scratch_bytes
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+def exact_operands(a: torch.Tensor, b: torch.Tensor, stride: int) -> bool:
+    """Whether K1 may take its exact path for these volumes: every element
+    of ``a`` and of the rows of ``b`` that a tap reaches (the first W'//S *
+    S) is a bf16 value, its float32 bits' low half zero. K1's pre-pass makes
+    this test on the card; this is the same test in plain PyTorch."""
+    rows = a.shape[1] // stride * stride
+    return all(
+        not bool((x.float().contiguous().view(torch.int32) & 0xFFFF).any())
+        for x in (a, b[:, :rows])
+    )
+
+
+def _ratio_terms(a, b, kernel, stride):
+    """(numerator, denominator) of each pair's squared cancellation ratio."""
+    w, c = a.shape[1:]
+    j = w // stride
+    k64 = kernel.double().reshape(stride, c, -1)
+    la = a.double() @ k64.sum(0)  # (B, W', F)
+    lb = b[:, : j * stride].double().reshape(b.shape[0], j, stride * c) @ k64.reshape(
+        stride * c, -1)
+    ea, ea2 = la.mean(1), (la * la).mean(1)
+    eb, eb2 = lb.mean(1), (lb * lb).mean(1)
+    return ((ea2.sqrt() + eb2.sqrt()) ** 2).sum(1), (ea2 + eb2 - 2 * ea * eb).sum(1)
+
+
+def cancellation_ratio(a: torch.Tensor, b: torch.Tensor, kernel: torch.Tensor,
+                       stride: int) -> torch.Tensor:
+    """Each pair's cancellation ratio rho, (B,) float64: with L_a[i, f] =
+    sum_c a[i, c] sum_k W[k, c, f] and L_b[j, f] = sum_{k,c} W[k, c, f]
+    b[S j + k, c], rho^2 = sum_f (rms_i L_a + rms_j L_b)^2 / sum_f
+    mean_{i,j} (L_a[i] - L_b[j])^2. The numerator is the size of what the
+    exact path's sums hold, the denominator about that of its output
+    (sum W (a - b) against sum W |a - b|). K1's pre-pass computes it from
+    its float32 L in float64; this is the same in float64 throughout."""
+    num, den = _ratio_terms(a, b, kernel, stride)
+    return (num / den).sqrt()
+
+
+def exact_pairs(a: torch.Tensor, b: torch.Tensor, kernel: torch.Tensor,
+                stride: int) -> torch.Tensor:
+    """(B,) bool on the CPU: the pairs that take K1's exact path, the rest
+    the general one: the call's volumes are bf16 values (``exact_operands``)
+    and the pair's ``cancellation_ratio`` is at most ``ROUTE_RATIO``. K1's
+    ``k1.exact_calls`` counts a call where all are true."""
+    if not exact_operands(a, b, stride):
+        return torch.zeros(a.shape[0], dtype=torch.bool)
+    num, den = _ratio_terms(a, b, kernel, stride)
+    return (num <= ROUTE_RATIO**2 * den).cpu()
 
 
 @functools.cache
@@ -104,6 +191,13 @@ def _check_aligned(name: str, x: torch.Tensor) -> None:
         raise ValueError(f"{name} must be 16-byte aligned for vector loads")
 
 
+def _pad_channels(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """``x`` with ``pad`` zero channels appended; a batch stride of 0 stays 0."""
+    if x.shape[0] > 1 and x.stride(0) == 0:
+        return nnf.pad(x[:1], (0, pad)).expand(x.shape[0], -1, -1)
+    return nnf.pad(x, (0, pad))
+
+
 def _launch_forward(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -139,15 +233,25 @@ def _launch_forward(
             raise ValueError(f"bias must be ({f},) on {a.device}")
         _check_aligned("bias", bias)
     j = w // s
+    pad = -c % KERNEL_CHUNK
+    if pad:  # zero channels add |0 - 0| = 0 against zero weights: exact
+        a, b = _pad_channels(a, pad), _pad_channels(b, pad)
+        kernel = nnf.pad(kernel, (0, 0, 0, pad))
+        c += pad
+    a_bstride = a.stride(0) if bsz > 1 else 0
+    b_bstride = b.stride(0) if bsz > 1 else 0
     out = torch.empty((bsz, w, j, f), dtype=torch.float32, device=a.device)
-    # the weight transposed and split into tf32 hi / lo rows (2F, S*C)
-    wt = torch.empty((2 * f, s * c), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
+        # the weight's bf16 pieces, sum_k W, L_a, L_b, the volumes' bf16
+        # copies, the call's flag and the pairs' routes (the source's Scratch)
+        scratch = torch.empty(
+            _scratch_bytes()(bsz, w, c, s, a_bstride == 0, b_bstride == 0),
+            dtype=torch.uint8, device=a.device)
+        tally = device_counter("k1.exact_calls", a.device)
         err = _entry()(
             a.data_ptr(), b.data_ptr(), kernel.data_ptr(),
-            None if bias is None else bias.data_ptr(), wt.data_ptr(), out.data_ptr(),
-            bsz, w, c, s, f,
-            a.stride(0) if bsz > 1 else 0, b.stride(0) if bsz > 1 else 0,
+            None if bias is None else bias.data_ptr(), scratch.data_ptr(), tally.data_ptr(),
+            out.data_ptr(), bsz, w, c, s, f, a_bstride, b_bstride,
             torch.cuda.current_stream().cuda_stream,
         )
     if err == INVALID_VALUE:

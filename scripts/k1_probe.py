@@ -6,25 +6,36 @@ Run from the root of the repository, on a machine with the card and nvcc:
     python3 scripts/k1_probe.py
 
 It builds the kernel's source and variants made from it by text edits, one
-nvcc process each, and times each through the port's wrapper at B = 32 and
-W' = 360 and 450 (CUDA events, in turns: each variant, then all again in
-reverse order). Every variant is printed with its ptxas line, its HGMMA count
-in ``cuobjdump -sass`` and its times; the variants that compute K1 are also
-held to the plain version and to an fp64 run on two pairs.
+nvcc process each, and times each through the port's wrapper (CUDA events,
+in turns: each variant, then all again in reverse order) on bf16-valued
+volumes (K1's exact path) at B = 32 and 256, W' = 360, and the source as it
+is also on float32 volumes (the general path) at B = 32. Every variant is
+printed with its ptxas lines, its HGMMA count in ``cuobjdump -sass`` and its
+times; the variants that compute K1 are also held to the plain version and
+to an fp64 run on two pairs.
 
 - ``kernel``: the source as it is;
 - ``mma_only``: no fragments formed (constants instead), the wgmma as they
   are: the tensor cores' part alone;
-- ``form_only``: the fragments formed, no wgmma (the fragments are summed on
-  the CUDA cores so that nothing is dead code): the formation's part alone;
-- ``ss_mma_only``: as ``mma_only``, but each wgmma reads A from shared memory
-  (the weight tile stands in for it): the same products with both operands
-  in shared memory;
-- ``promote_every_3`` / ``_5`` / ``_15``: the fp32 tap sums taken every
-  3 / 5 / 15 taps instead of every tap (time against error; at S = 15,
-  ``_15`` sums the whole reduction in the tensor cores' accumulators).
+- ``form_only``: the fragments formed, no wgmma (the fragments are summed
+  on the CUDA cores so that nothing is dead code): the formation's part;
+- ``tma_only``: neither: the weight ring, the staged rows, the fp32 flushes
+  and the epilogue alone;
+- ``stages_4``: a weight ring of at most 4 stages (the source fits as many
+  as shared memory leaves, up to 6);
+- ``exact_always``: no route: every pair of bf16-valued volumes takes the
+  exact path, whatever its cancellation ratio.
 
-Numbers from these variants are diagnostics, not results of the port.
+Last, an accuracy sweep: bf16-valued volumes at B = 16, W' = 360, ReLU'd
+normals and normals of mean 1, 3, 5, 8, 10 and 30 (spread 1), through
+``kernel`` and ``exact_always``; each pair's relative error against the
+plain version in float64 beside its cancellation ratio (what the route
+reads) and the number of pairs that took the exact path.
+
+The pre-pass and the weight split run in every variant; their time and the
+product's, by kernel row, are in ``chip_smoke.py``'s phase ``kernel`` at
+B = 256. Numbers from these variants are diagnostics, not results of the
+port.
 """
 
 from __future__ import annotations
@@ -43,72 +54,32 @@ sys.path.insert(0, ROOT)
 C, S, F = 128, 15, 64
 
 
-def edit(src: str, old: str, new: str) -> str:
-    if old not in src:
-        raise RuntimeError(f"k1_probe: the kernel source changed; not found:\n{old}")
+def edit(src: str, old: str, new: str, count: int = 1) -> str:
+    if src.count(old) != count:
+        raise RuntimeError(f"k1_probe: the kernel source changed; not found {count}x:\n{old}")
     return src.replace(old, new)
 
 
-def consumer_span(src: str, start: str, end: str) -> tuple[int, int]:
-    """[i, j) of the consumer path's text from ``start`` up to ``end``."""
-    i = src.index(start, src.index("setmaxnreg.inc"))
-    return i, src.index(end, i)
-
-
 def variants(src: str) -> dict[str, str]:
+    form = "        form_unit<EXACT>(c, b_k, fr[u % 2], cc * KC, u);\n"
+    issue = "        issue_unit<EXACT>(fr[u % 2], acc, w0, u, cc == 0 && u == 0);\n"
     out = {"kernel": src}
-    fi, fj = consumer_span(src, "#pragma unroll\n        for (int r = 0; r < 4; ++r) {\n"
-                           "          const float* pa", "        const int s = q % STAGES;")
-    out["mma_only"] = src[:fi] + """#pragma unroll
+    out["mma_only"] = edit(src, form, """#pragma unroll
         for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            hi[r][e] = 0x3f000000u + (uint32_t)(q + r + e) * 8192u;
-            lo[r][e] = 0x30000000u + (uint32_t)(q + e) * 8192u;
-          }
-""" + src[fj:]
-    mi, mj = consumer_span(src, "        wgmma_fence();\n", "        if (lane == 0) mbar_arrive")
-    out["form_only"] = src[:mi] + """#pragma unroll
+          for (int e = 0; e < U::WORDS; ++e)
+            fr[u % 2][r][e] = 0x3f803f80u + (uint32_t)(q + r + e) * 0x10001u;
+""")
+    out["form_only"] = edit(src, issue, """#pragma unroll
         for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int e = 0; e < 8; ++e)
-            acc[r / 2][(r % 2) * 8 + e] += __uint_as_float(hi[r][e]) + __uint_as_float(lo[r][e]);
-""" + src[mj:]
-    ss_fn = """__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t desc_a,
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\\n .reg .pred p;\\n setp.ne.b32 p, %34, 0;\\n"
-      " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32"
-      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1;\\n}\\n"
-      : """ + ", ".join(f'"+f"(d[{i}])' for i in range(32)) + """
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-"""
-    ss = edit(out["mma_only"], "__device__ __forceinline__ void wgmma_fence()",
-              ss_fn + "__device__ __forceinline__ void wgmma_fence()")
-    si, sj = consumer_span(ss, "#pragma unroll\n        for (int st = 0; st < KC / 8; ++st) {",
-                           "        wgmma_commit();")
-    out["ss_mma_only"] = ss[:si] + """#pragma unroll
-        for (int st = 0; st < KC / 8; ++st) {
-          const uint64_t d_hi = kmajor_sw128_desc(w_hi + 32 * st);
-          const uint64_t d_lo = kmajor_sw128_desc(w_lo + 32 * st);
-#pragma unroll
-          for (int pass = 0; pass < 3; ++pass)
-#pragma unroll
-            for (int t = 0; t < 2; ++t)
-              wgmma_tf32_ss(acc[t], pass == 2 ? d_lo : d_hi, pass == 1 ? d_lo : d_hi);
-        }
-""" + ss[sj:]
-    for every in (3, 5, 15):
-        v = edit(src, "d_hi, c0 > 0 || st > 0);", f"d_hi, k % {every} > 0 || c0 > 0 || st > 0);")
-        v = edit(v, "      fence_regs(acc[0]);\n      fence_regs(acc[1]);\n",
-                 f"      if (k % {every} != {every - 1} && k + 1 < stride) continue;\n"
-                 "      fence_regs(acc[0]);\n      fence_regs(acc[1]);\n")
-        out[f"promote_every_{every}"] = edit(v, "          if (k > 0) {",
-                                             f"          if (k >= {every}) {{")
+          for (int e = 0; e < U::WORDS; ++e)
+            acc[r / 2][(r % 2) * 8 + e] += __uint_as_float(fr[u % 2][r][e]);
+""")
+    out["tma_only"] = edit(edit(src, form, ""), issue, "")
+    out["stages_4"] = edit(src, "constexpr int MAX_STAGES = 6;", "constexpr int MAX_STAGES = 4;")
+    out["exact_always"] = edit(src, "constexpr double ROUTE_RATIO = 8.0;",
+                               "constexpr double ROUTE_RATIO = 1e30;")
     return out
 
 
@@ -148,11 +119,11 @@ def main() -> int:
     for name, (so, log) in built.items():
         sass = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True).stdout
         ptxas = [ln.strip() for ln in log.splitlines()
-                 if "Used" in ln or "spill" in ln]
-        print(json.dumps({"variant": name, "ptxas_main_kernel": ptxas[:2],
-                          "hgmma": sass.count("HGMMA")}), flush=True)
+                 if any(k in ln for k in ("Compiling", "Used", "spill", "wgmma"))]
+        print(json.dumps({"variant": name, "ptxas": ptxas, "hgmma": sass.count("HGMMA")}),
+              flush=True)
         fn = ctypes.CDLL(so).delta_conv1_forward
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         entries[name] = fn
@@ -169,19 +140,23 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    computes_k1 = {"kernel", "promote_every_3", "promote_every_5", "promote_every_15"}
-    for w in (360, 450):
-        rng = np.random.default_rng(w)
-        a, b = (torch.from_numpy(np.maximum(rng.normal(size=(32, w, C)), 0)
+    computes_k1 = {"kernel", "stages_4", "exact_always"}
+    limit = np.sqrt(6.0 / (S * C + S * F))
+    for bsz, values in ((32, "bf16"), (256, "bf16"), (32, "float32")):
+        w = 360
+        rng = np.random.default_rng(bsz)
+        a, b = (torch.from_numpy(np.maximum(rng.normal(size=(bsz, w, C)), 0)
                                  .astype(np.float32)).cuda() for _ in range(2))
-        limit = np.sqrt(6.0 / (S * C + S * F))
+        if values == "bf16":
+            a, b = a.bfloat16().float(), b.bfloat16().float()
         kern = torch.from_numpy(rng.uniform(-limit, limit, size=(S, C, F)).astype(np.float32)).cuda()
         bias = torch.from_numpy(rng.normal(size=(F,)).astype(np.float32) * 0.1).cuda()
         ref = plain.delta_conv1(a, b, kern, bias, stride=S)
         ref64 = plain.delta_conv1(a[:2].double(), b[:2].double(), kern.double(),
                                   bias.double(), stride=S)
+        names = list(entries) if values == "bf16" else ["kernel"]
         times = {}
-        for name in list(entries) + list(entries)[::-1]:
+        for name in names + names[::-1]:
             k1._entry = lambda fn=entries[name]: fn
             run = lambda: k1.delta_conv1(a, b, kern, bias, stride=S)  # noqa: E731
             times.setdefault(name, []).append(time_ms(run))
@@ -190,13 +165,33 @@ def main() -> int:
                 torch.cuda.synchronize()
                 times[name + ":err"] = (float((out - ref).abs().max()),
                                         float((out[:2].double() - ref64).abs().max()))
-        for name in entries:
-            row = {"w": w, "batch": 32, "variant": name, "ms": times[name], "card": smi}
+        for name in names:
+            row = {"w": w, "batch": bsz, "values": values, "variant": name,
+                   "ms": times[name], "card": smi}
             if name in computes_k1:
                 row["max_abs_err_vs_plain"], row["max_abs_err_vs_fp64_2pairs"] = times[name + ":err"]
             print(json.dumps(row), flush=True)
-        print(json.dumps({"w": w, "plain_vs_fp64_2pairs":
+        print(json.dumps({"batch": bsz, "values": values, "plain_vs_fp64_2pairs":
                           float((ref[:2].double() - ref64).abs().max())}), flush=True)
+
+    for offset in (0, 1, 3, 5, 8, 10, 30):
+        rng = np.random.default_rng(100 + offset)
+        a, b = (torch.from_numpy((rng.normal(size=(16, 360, C)) + offset if offset else
+                                  np.maximum(rng.normal(size=(16, 360, C)), 0))
+                                 .astype(np.float32)).cuda().bfloat16().float() for _ in range(2))
+        kern = torch.from_numpy(rng.uniform(-limit, limit, size=(S, C, F)).astype(np.float32)).cuda()
+        bias = torch.from_numpy(rng.normal(size=(F,)).astype(np.float32) * 0.1).cuda()
+        ref64 = plain.delta_conv1(a.double(), b.double(), kern.double(), bias.double(), stride=S)
+        rho = k1.cancellation_ratio(a, b, kern, S)
+        row = {"offset": offset or "relu", "rho_min": float(rho.min()),
+               "rho_max": float(rho.max()), "exact_pairs": int(k1.exact_pairs(a, b, kern, S).sum())}
+        for name in ("kernel", "exact_always"):
+            k1._entry = lambda fn=entries[name]: fn
+            out = k1.delta_conv1(a, b, kern, bias, stride=S).double()
+            err = (out - ref64).flatten(1).norm(dim=1) / ref64.flatten(1).norm(dim=1)
+            row[name + "_worst_pair_rel_err"] = float(err.max())
+            row[name + "_median_pair_rel_err"] = float(err.median())
+        print(json.dumps(row), flush=True)
     return 0
 
 

@@ -69,43 +69,180 @@ def test_k1_plain_version_matches_pallas_kernel(w):
 
 def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
     """fp32 -> TF32 as cvt.rna.tf32.f32 rounds (nearest, ties away from
-    zero): (bits + 0x1000) & 0xFFFFE000 on the int32 view."""
+    zero): (bits + 0x1000) & 0xFFFFE000 on the int32 view (K2's split)."""
     return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
+def _bf16_pieces(x: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """``x`` as K1 splits it: n bf16 values (float32 with the low 16 bits
+    cleared), each the truncation of what the pieces before left; for n = 3
+    their sum is ``x`` exactly."""
+    pieces = []
+    for _ in range(n):
+        pieces.append((x.view(torch.int32) & -0x10000).view(torch.float32))
+        x = x - pieces[-1]
+    return pieces
+
+
+def _k1_scheme(a, b, kernel, bias, *, exact: bool, w_pieces: int = 3, a_pieces: int = 3):
+    """K1's arithmetic on the card in plain float32 (B = 1), W split into
+    ``w_pieces`` bf16 pieces. The exact path: L_a + L_b + bias - 2 sum W
+    min(a, b), min(a, b) one bf16 piece, three products. The general path:
+    sum W |a - b| + bias, |a - b| (rounded to float32) split into
+    ``a_pieces`` pieces, the products of order <= 2. Each partial product is
+    exact in float32 and summed in float32."""
+    w, c = a.shape[1:]
+    s, _, f = kernel.shape
+    j = w // s
+    wmat = _t(kernel).reshape(s * c, f)
+    wp = _bf16_pieces(wmat, w_pieces)
+    b_r = _t(b[0, : j * s]).reshape(j, s * c)
+    la = _t(a[0]) @ _t(kernel).sum(0)
+    lb = b_r @ wmat
+    out = torch.empty((w, j, f))
+    for i0 in range(0, w, 45):
+        a_rep = _t(a[0, i0 : i0 + 45]).repeat(1, s)[:, None, :]
+        if exact:
+            prod = sum(torch.minimum(a_rep, b_r) @ p for p in wp)
+            out[i0 : i0 + 45] = (la[i0 : i0 + 45, None] + lb[None] + _t(bias)) - 2 * prod
+        else:
+            ap = _bf16_pieces((a_rep - b_r).abs(), a_pieces)
+            out[i0 : i0 + 45] = sum(ap[p] @ wp[q] for p in range(len(ap))
+                                    for q in range(len(wp)) if p + q <= 2) + _t(bias)
+    return out.numpy()
+
+
+@pytest.mark.parametrize("path", ["exact", "general"])
 @pytest.mark.parametrize("w", [360, 450])
-def test_k1_3xtf32_scheme_matches_jax_fp32(w):
-    """K1's precision scheme, emulated in plain torch at full width (C=128,
-    S=15, F=64, B=1): the abs-diff and the weight split into TF32 hi and
-    lo = tf32(x - hi), then hi*hi + hi*lo + lo*hi as three fp32 matmuls, held
-    to the JAX package's fp32 delta_conv1 at the kernel's 1e-4 gate. A single
-    TF32 pass misses that gate. (The chip run holds the kernel itself.)"""
+def test_k1_scheme_matches_jax_fp32(w, path):
+    """K1's arithmetic, emulated in plain torch at full width (C=128, S=15,
+    F=64, B=1), held to the JAX package's fp32 delta_conv1 at the kernel's
+    1e-4 gate on the card: on bf16-valued volumes (the bf16 legs' output) the
+    exact path, min(a, b) in one bf16 piece against W in three; on float32
+    volumes the general path, |a - b| in three pieces and the six products of
+    order <= 2. W in one piece misses the gate, and so does one piece of
+    |a - b| on float32 volumes. (The chip run holds the kernel itself.)"""
     rng = np.random.default_rng(w)
     c, s, f = 128, 15, 64
-    j = w // s
-    a = np.maximum(rng.normal(size=(1, w, c)), 0).astype(np.float32)
-    b = np.maximum(rng.normal(size=(1, w, c)), 0).astype(np.float32)
+    a, b = (np.maximum(rng.normal(size=(1, w, c)), 0).astype(np.float32) for _ in range(2))
+    if path == "exact":
+        a, b = (_t(x).bfloat16().float().numpy() for x in (a, b))
+    assert k1.exact_operands(_t(a), _t(b), s) == (path == "exact")
     limit = np.sqrt(6.0 / (s * c + s * f))
     kernel = rng.uniform(-limit, limit, size=(s, c, f)).astype(np.float32)
     bias = rng.normal(size=(f,)).astype(np.float32) * 0.1
     expected = np.asarray(jdelta.delta_conv1(
         jnp.asarray(a), jnp.asarray(b), jnp.asarray(kernel), jnp.asarray(bias), stride=s,
     ))[0]
+    exact = path == "exact"
+    np.testing.assert_allclose(_k1_scheme(a, b, kernel, bias, exact=exact), expected,
+                               rtol=1e-4, atol=1e-4)
+    one_w_piece = _k1_scheme(a, b, kernel, bias, exact=exact, w_pieces=1)
+    assert np.abs(one_w_piece - expected).max() > 1e-4
+    if not exact:
+        one_a_piece = _k1_scheme(a, b, kernel, bias, exact=False, a_pieces=1)
+        assert np.abs(one_a_piece - expected).max() > 1e-4
 
-    wmat = _t(kernel).reshape(s * c, f)
-    w_hi = _tf32_rna(wmat)
-    w_lo = _tf32_rna(wmat - w_hi)
-    b_r = _t(b[0, : j * s]).reshape(j, s * c)
-    out3 = torch.empty((w, j, f))
-    out1 = torch.empty((w, j, f))
-    for i0 in range(0, w, 45):
-        d = (_t(a[0, i0 : i0 + 45]).repeat(1, s)[:, None, :] - b_r).abs()
-        d_hi = _tf32_rna(d)
-        d_lo = _tf32_rna(d - d_hi)
-        out3[i0 : i0 + 45] = d_hi @ w_hi + d_hi @ w_lo + d_lo @ w_hi
-        out1[i0 : i0 + 45] = d_hi @ w_hi
-    np.testing.assert_allclose((out3 + _t(bias)).numpy(), expected, rtol=1e-4, atol=1e-4)
-    assert np.abs((out1 + _t(bias)).numpy() - expected).max() > 1e-4
+
+def test_k1_exact_operands_flips_on_one_value_that_is_not_bf16():
+    """The test K1's pre-pass makes for its exact path: every element of a
+    and of the rows of b a tap reaches is a bf16 value. One element with a
+    low bit set, in either volume (an expanded query included), turns it
+    off; b's rows past W'//S * S, which no tap reaches, do not."""
+    rng = np.random.default_rng(3)
+    w, c, s = 100, 32, 15  # taps reach rows 0..89 of b
+    a = _t(np.maximum(rng.normal(size=(2, w, c)), 0).astype(np.float32)).bfloat16().float()
+    b = _t(np.maximum(rng.normal(size=(1, w, c)), 0).astype(np.float32)).bfloat16().float()
+    assert k1.exact_operands(a, b.expand(2, w, c), s)
+    for x, at in ((a, (1, 50, 7)), (b, (0, 89, 31))):
+        odd = x.clone()
+        odd[at] = float(np.nextafter(np.float32(odd[at].item() + 1.0), np.float32(np.inf)))
+        pair = (odd, b.expand(2, w, c)) if x is a else (a, odd.expand(2, w, c))
+        assert not k1.exact_operands(*pair, s)
+    tail = b.clone()
+    tail[0, 95, 3] = 1.0 + 2.0 ** -20  # past J * S = 90
+    assert k1.exact_operands(a, tail.expand(2, w, c), s)
+
+
+def test_k1_min_identity_holds_on_ties_and_zeros():
+    """|x - y| = x + y - 2 min(x, y) on ReLU features with many exact ties
+    and zeros (values on a grid of 1/4): L_a + L_b - 2 sum W min(a, b)
+    equals sum W |a - b| in float64 to rounding, and the exact path in
+    float32 stays within float32 rounding of it."""
+    rng = np.random.default_rng(11)
+    w, c, s, f = 90, 128, 15, 64
+    a, b = (np.maximum(np.round(rng.normal(size=(1, w, c)) * 4) / 4, 0).astype(np.float32)
+            for _ in range(2))
+    j = w // s
+    b_r = b[0, : j * s].reshape(j, s * c)
+    ties = (np.tile(a[0], (1, s))[:, None, :] == b_r[None]).mean()
+    assert ties > 0.3 and (a == 0).mean() > 0.4
+    limit = np.sqrt(6.0 / (s * c + s * f))
+    kernel = rng.uniform(-limit, limit, size=(s, c, f)).astype(np.float32)
+    bias = np.zeros(f, np.float32)
+    want = tdelta.delta_conv1(_t(a).double(), _t(b).double(), _t(kernel).double(),
+                              stride=s)[0].numpy()
+    k64 = _t(kernel).double()
+    la = _t(a[0]).double() @ k64.sum(0)
+    lb = _t(b_r).double() @ k64.reshape(s * c, f)
+    m = torch.minimum(_t(a[0]).double().repeat(1, s)[:, None, :], _t(b_r).double())
+    identity = (la[:, None] + lb[None] - 2 * m @ k64.reshape(s * c, f)).numpy()
+    scale = np.abs(want).max()
+    assert np.abs(identity - want).max() <= 1e-12 * scale
+    got = _k1_scheme(a, b, kernel, bias, exact=True)
+    assert np.abs(got - want).max() <= 1e-5 * scale
+
+
+def _offset_volumes(rng, bsz, w, c, offset):
+    """bf16-valued (B, W', C) volumes: ReLU'd normals, or normals of mean
+    ``offset`` and spread 1 (features that share an offset)."""
+    x = rng.normal(size=(bsz, w, c))
+    x = x + offset if offset else np.maximum(x, 0)
+    return _t(x.astype(np.float32)).bfloat16().float()
+
+
+@pytest.mark.parametrize("offset,exact", [(0, True), (3, True), (10, False), (30, False)])
+def test_k1_route_sends_offset_features_to_the_general_path(offset, exact):
+    """A pair takes K1's exact path only where its cancellation ratio rho is
+    at most ROUTE_RATIO: ReLU'd features (rho about 1.6) and an offset of 3
+    over a spread of 1 (about 4) do, offsets of 10 and 30 (about 13 and 39)
+    do not. rho's closed form equals its definition summed over every
+    (i, j), and the exact path's error, emulated in float32, grows with rho
+    where it is left to run: past 1e-6 of the output's norm at offset 10."""
+    rng = np.random.default_rng(40 + offset)
+    w, c, s, f = 360, 128, 15, 64
+    a, b = (_offset_volumes(rng, 2, w, c, offset) for _ in range(2))
+    limit = np.sqrt(6.0 / (s * c + s * f))
+    kernel = _t(rng.uniform(-limit, limit, size=(s, c, f)).astype(np.float32))
+    rho = k1.cancellation_ratio(a, b, kernel, s)
+    assert k1.exact_pairs(a, b, kernel, s).tolist() == [exact, exact]
+    assert bool((rho <= k1.ROUTE_RATIO).all()) == exact
+    j = w // s
+    k64 = kernel.double()
+    la = a[0].double() @ k64.sum(0)
+    lb = b[0, : j * s].double().reshape(j, s * c) @ k64.reshape(s * c, f)
+    num = ((la.pow(2).mean(0).sqrt() + lb.pow(2).mean(0).sqrt()) ** 2).sum()
+    den = (la[:, None] - lb[None]).pow(2).mean((0, 1)).sum()
+    assert abs(float((num / den).sqrt()) - float(rho[0])) <= 1e-9 * float(rho[0])
+
+    bias = np.zeros(f, np.float32)
+    want = tdelta.delta_conv1(a[:1].double(), b[:1].double(), k64, stride=s)[0].numpy()
+    got = _k1_scheme(a[:1].numpy(), b[:1].numpy(), kernel.numpy(), bias, exact=True)
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    # float32 sums: a few ulps (6e-8) of the output's norm for each unit of rho
+    assert rel <= 5e-7 * float(rho[0])
+    if offset >= 10:
+        assert rel > 1e-6
+
+
+def test_k1_route_ratio_is_the_sources():
+    """kernels/delta_conv1.py's ROUTE_RATIO is the one the CUDA source uses."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(k1.__file__), "..", "csrc", "delta_conv1.cu")).read()
+    found = re.findall(r"constexpr double ROUTE_RATIO = ([0-9.]+);", src)
+    assert found and float(found[0]) == k1.ROUTE_RATIO
 
 
 @pytest.mark.parametrize("negate", [False, True])

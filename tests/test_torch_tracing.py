@@ -183,6 +183,22 @@ def test_a_second_traced_stretch_records_only_its_own_counts(between, tmp_path):
     assert profiling.record()["counts"] == {"test.stretch": 2}
 
 
+def test_a_device_counter_reads_in_totals_and_in_the_stretch_that_used_it():
+    """A kernel adds to a device counter on the device (a CPU tensor stands
+    in for it here): ``totals()`` reads its whole value, ``record()`` what
+    the traced stretch added from its first use on."""
+    t = profiling.device_counter("test.device", "cpu")
+    t.add_(2)  # before any profiler
+    before = profiling.totals()["test.device"]
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.count("test.calls")
+        profiling.device_counter("test.device", "cpu").add_(3)
+        profiling.device_counter("test.device", "cpu").add_(1)
+    assert profiling.record()["counts"] == {"test.calls": 1, "test.device": 4}
+    assert profiling.totals()["test.device"] == before + 4
+    assert profiling.device_counter("test.device", "cpu") is t
+
+
 def test_a_thread_outside_the_profiler_leaves_the_stretch_open():
     def worker():
         with profiling.span("test.worker"):
