@@ -63,9 +63,13 @@ Phases, each printing one JSON line:
    |d| < 1e-3); (d) the whole pipelined run raises nothing under
    ``torch.cuda.set_sync_debug_mode("error")`` and launches K1 at least once
    per frame that had candidates; (e) a revisit matched to its twin has the
-   yaw of the roll that made it, within one bin. Frames/s pipelined and
-   stepped, the stepped frame's latency and a profiled window's device-busy
-   share are printed as information.
+   yaw of the roll that made it, within one bin; (f) the plain store
+   (``Infer(cfg)``, no shards) pipelined the same way raises nothing under
+   the same mode, returns every frame from ``dispatch_frame`` unresolved
+   (an event behind it), and gives the sharded store's closures frame by
+   frame (frame and match equal, the rest to 1e-6). Frames/s pipelined on
+   each store and stepped, the stepped frame's latency and a profiled
+   window's device-busy share are printed as information.
 
 5. kernel_bwd (run after kernel): K2, the backward of K1 (both products
    3xTF32 wgmma on the tensor cores behind a pre-pass that splits the
@@ -872,14 +876,15 @@ def phase_lcd(torch, smi):
         cfg.data.data_root_folder, cfg.data.infer_seqs = tmp, "00"
         params = init_params(cfg.model, cfg.num_input_channels, seed=0)
 
-        def engine(covariances, config=cfg, device="cuda", frames=n, **gates):
-            infer = Infer(config, params=params, db_capacity=512, device=device, shards=1)
+        def engine(covariances, config=cfg, device="cuda", frames=n, shards=1, **gates):
+            infer = Infer(config, params=params, db_capacity=512, device=device, shards=shards)
             return OnlineLoopCloser(
                 infer, poses[:frames],
                 covariances=None if covariances is None else covariances[:frames],
                 overlap_threshold=-1.0, **gates)
 
-        engine(covs).run(LCD_OUT + 8)  # warm-up: cuDNN and cuFFT plans, pinned blocks
+        for shards in (1, None):  # warm-up: cuDNN and cuFFT plans, pinned blocks
+            engine(covs, shards=shards).run(LCD_OUT + 8)
         torch.cuda.synchronize()
 
         # the main path: the pipelined run, with no host synchronisation (d)
@@ -901,6 +906,31 @@ def phase_lcd(torch, smi):
             raise RuntimeError(f"{launches} delta_conv1 launches for {scored_frames} scored frames")
         if [c.frame for c in piped.closures] != [i for i, c in enumerate(candidates) if c]:
             raise RuntimeError("not every frame with candidates gave a result")
+
+        # the plain store (Infer without shards), pipelined the same way: no
+        # host synchronisation, every frame dispatched unresolved, and the
+        # sharded store's result frame by frame
+        plain = engine(covs, shards=None)
+        dispatch, unresolved = plain.infer.dispatch_frame, []
+
+        def recording(*args, **kw):
+            pending = dispatch(*args, **kw)
+            unresolved.append(pending._event is not None and not pending._done)
+            return pending
+
+        plain.infer.dispatch_frame = recording
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            plain.run(pipeline_depth=8)
+            plain_s = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        if len(unresolved) != n or not all(unresolved):
+            raise RuntimeError(f"the plain store resolved {unresolved.count(False)} of "
+                               f"{len(unresolved)} frames at dispatch")
+        same_closures(plain.closures, piped.closures, "plain store vs sharded store")
 
         # (a) stepped frame by frame, with each frame's dispatch-to-result time
         stepped = engine(covs)
@@ -996,8 +1026,10 @@ def phase_lcd(torch, smi):
         "frames": n, "scored_frames": scored_frames, "pairs_scored": pairs,
         "closures": len(piped.closures), "twin_matches": len(twins),
         "delta_conv1_launches": launches, "sync_debug_mode": "error: nothing raised",
-        "frames_per_s_pipelined": n / piped_s, "frames_per_s_stepped": n / stepped_s,
-        "pipelined_s": piped_s, "stepped_s": stepped_s,
+        "frames_per_s_pipelined": n / piped_s, "frames_per_s_pipelined_plain_store": n / plain_s,
+        "frames_per_s_stepped": n / stepped_s,
+        "pipelined_s": piped_s, "pipelined_plain_store_s": plain_s, "stepped_s": stepped_s,
+        "plain_store_frames_unresolved_at_dispatch": sum(unresolved),
         "stepped_scored_frame_ms_p50": float(np.percentile(scored_ms, 50)),
         "stepped_scored_frame_ms_p99": float(np.percentile(scored_ms, 99)),
         "stepped_unscored_frame_ms_p50": float(np.percentile(latency_ms[:LCD_OUT], 50)),

@@ -1,15 +1,17 @@
 """Descriptor database: cached leg embeddings scored by the pairwise heads.
 
 ``DescriptorDB`` keeps a float32 (rows, W', C) tensor on the serving device
-that grows by doubling up to ``capacity``. Scoring runs the heads on the
-device and brings back only per-pair results: overlap, sub-bin yaw peak and
+that grows by doubling up to ``capacity``. Its queries run the heads on the
+device and bring back only per-pair results: overlap, sub-bin yaw peak and
 yaw confidence.
 
-``ShardedDescriptorDB`` is the online loop closer's store: allocated at
-capacity, rows interleaved over shards, candidates chosen by a global-row
-mask, the best k reduced on the device, and a fused frame step (embed +
-insert + masked top-1) that never waits for the device. Its shards live on
-one device, or one on each rank of a mesh.
+``ShardedDescriptorDB`` is allocated at capacity, rows interleaved over
+shards, candidates chosen by a global-row mask and the best k reduced on the
+device. Its shards live on one device, or one on each rank of a mesh.
+
+Both stores have the online loop closer's fused frame step (embed + insert
++ masked top-1, ``frame_step``), which never waits for the device: the best
+candidate's four numbers land in page-locked memory behind an event.
 """
 
 from __future__ import annotations
@@ -29,13 +31,166 @@ from overlapnet_torch.parallel.mesh import Mesh, all_gather, device_of, save_npz
 MAX_PAIRS_PER_CALL = 256
 
 
-class DescriptorDB:
+def _packed_topk(scores: torch.Tensor, gids: torch.Tensor, k: int) -> torch.Tensor:
+    """The best ``k`` columns of ``scores`` (3, n) = [overlap, yaw_peak,
+    yaw_confidence] as one (4, k) float32 tensor [overlap, row_id, yaw_peak,
+    yaw_confidence], best first. Ties go to the lower column (a stable sort),
+    and slots past n hold overlap -1, row 0, peak 0, confidence 0."""
+    n = scores.shape[1]
+    out = scores.new_zeros((4, k))
+    out[0] = -1.0
+    kk = min(k, n)
+    if kk:
+        order = torch.sort(scores[0], descending=True, stable=True).indices[:kk]
+        out[0, :kk] = scores[0, order]
+        out[1, :kk] = gids[order].float()
+        out[2:, :kk] = scores[1:, order]
+    return out
+
+
+def _merge_topk(gathered: torch.Tensor, k: int) -> torch.Tensor:
+    """The best ``k`` of every rank's packed top-k, (D, 4, k) -> (4, k). In
+    rank order a stable sort meets equal overlaps in store order (shard,
+    then slot), so the result is the one store's."""
+    cols = gathered.transpose(0, 1).reshape(4, -1)
+    return _packed_topk(torch.cat([cols[:1], cols[2:]]), cols[1], k)
+
+
+class _FrameStore:
+    """What both stores share: host arrays sent to the device without a
+    wait, stored rows scored against a query in head calls of at most
+    MAX_PAIRS_PER_CALL pairs, and the fused frame step. A store sets
+    ``_head``, ``device``, ``_fv`` (..., W', C) and ``_n`` and gives
+    ``capacity`` and ``add``. Here a global row is a row of ``_fv``; a
+    store laid out otherwise gives ``_flat`` and ``_candidate_rows``, and
+    sets ``_mesh`` where its shards are spread over the ranks of a mesh."""
+
+    _mesh: Mesh | None = None
+    _leg_embed: Callable | None = None
+
+    def _check_row_ids(self) -> None:
+        if self.capacity >= 2**24:
+            # the frame step carries the row id in a float32
+            raise ValueError(f"capacity {self.capacity} must be below 2**24 rows")
+
+    def _upload(self, x) -> torch.Tensor:
+        """A host array or tensor on the store's device, without waiting for
+        the device: on a card the bytes go through page-locked memory with a
+        non-blocking copy (the host allocator keeps that block until the
+        copy has run); on the CPU an array is wrapped, not copied."""
+        t = torch.as_tensor(x)
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            return t.contiguous().pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _flat(self, rows: np.ndarray) -> np.ndarray:
+        """Global rows -> rows of ``_fv`` viewed as (rows, W', C)."""
+        return rows
+
+    def _live_rows(self, candidate_mask) -> np.ndarray:
+        """Live global rows a (capacity,)-or-shorter bool mask selects (all
+        live rows for None)."""
+        if candidate_mask is None:
+            return np.arange(self._n, dtype=np.int64)
+        return np.flatnonzero(np.asarray(candidate_mask, bool)[: self._n])
+
+    def _candidate_rows(self, candidate_mask) -> np.ndarray:
+        """The live masked rows this process scores, in the order in which
+        equal overlaps are ranked."""
+        return self._live_rows(candidate_mask)
+
+    def _heads(self, n: int, pairs: Callable[[slice], tuple]) -> torch.Tensor:
+        """Device scores (3, n) = [overlap, yaw_peak, yaw_confidence] of n
+        pairs, through head calls of at most MAX_PAIRS_PER_CALL pairs;
+        ``pairs(s)`` gives the (left, right) volumes of the pairs in slice
+        ``s``."""
+        outs = []
+        for i in range(0, n, MAX_PAIRS_PER_CALL):
+            overlap, logits = self._head(*pairs(slice(i, i + MAX_PAIRS_PER_CALL)))
+            outs.append(torch.stack(
+                [overlap.reshape(-1), subbin_peak(logits), yaw_confidence(logits)]
+            ))
+        return torch.cat(outs, dim=1)
+
+    def _score_rows(self, query: torch.Tensor, rows: np.ndarray):
+        """Score the (W', C) device ``query`` (right input) against stored
+        global ``rows`` (left input). Returns device tensors: scores (3, n) =
+        [overlap, yaw_peak, yaw_confidence] and the rows as int64. Nothing
+        here waits for the device."""
+        if len(rows) == 0:
+            return (self._fv.new_zeros((3, 0)),
+                    torch.zeros(0, dtype=torch.int64, device=self.device))
+        idx = self._upload(np.stack([self._flat(rows), rows]))
+        flat = self._fv.view(-1, *self._fv.shape[-2:])
+
+        def pairs(s):
+            fa = flat.index_select(0, idx[0, s])
+            return fa, query[None].expand_as(fa)
+
+        return self._heads(len(rows), pairs), idx[1]
+
+    def set_embedder(self, leg_apply: Callable) -> None:
+        """Register the leg function, images (B, H, W, C) -> (B, W', C'),
+        that :meth:`frame_step` embeds with (e.g. ``OverlapNet.encode``)."""
+        self._leg_embed = leg_apply
+
+    @torch.inference_mode()
+    def frame_step(self, image, candidate_mask, fv=None) -> tuple[int, tuple]:
+        """Embed ``image``, append the embedding as the next row, and score
+        it against the live masked rows, as one run of device work with no
+        host synchronisation. Requires :meth:`set_embedder`, unless the
+        (W', C) embedding ``fv`` is given: then ``image`` is not read and the
+        legs do not run.
+
+        Returns (row, (packed, event)). ``packed`` is a (4,) float32 host
+        tensor [overlap, row_id, yaw_peak, yaw_confidence] owned by this
+        frame; overlap is -1 when no live masked candidate exists. On a card
+        it is page-locked memory that a non-blocking copy fills: read it
+        only after ``event.synchronize()``. On the CPU the step has run by
+        the time it returns and ``event`` is None. The candidate mask indexes
+        GLOBAL rows and cannot select the new row; of equal overlaps the
+        row first in the store's order wins.
+
+        On a mesh every rank embeds the image (the leg is replicated, as in
+        the JAX step) and only the owning rank stores the row. Every rank
+        takes part in the gather of the ranks' best rows on every frame, also
+        with no candidate of its own (it offers overlap -1), so no rank waits
+        on the host; on NCCL the collective is enqueued on the stream.
+        """
+        with span("db.frame_step"):
+            if fv is None and self._leg_embed is None:
+                raise RuntimeError("frame_step needs set_embedder() first")
+            row = self._n
+            if row >= self.capacity:
+                raise ValueError(f"{type(self).__name__} capacity exceeded")
+            rows = self._candidate_rows(candidate_mask)
+            if fv is None:
+                fv = self._leg_embed(self._upload(np.asarray(image, np.float32))[None])[0]
+            else:
+                fv = self._upload(fv).float().contiguous()
+            self.add(fv)
+            scores, gids = self._score_rows(fv, rows)
+            with span("db.fetch"):
+                best = _packed_topk(scores, gids, 1)
+                if self._mesh is not None:
+                    best = _merge_topk(all_gather(self._mesh, best), 1)
+                best = best[:, 0]
+                if best.device.type != "cuda":
+                    return row, (best, None)
+                packed = torch.empty(4, dtype=torch.float32, pin_memory=True)
+                packed.copy_(best, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(best.device))
+                return row, (packed, event)
+
+
+class DescriptorDB(_FrameStore):
     """Single-device descriptor DB.
 
     Args:
       head_apply: (fa, fb) -> (overlap (B, 1), orientation logits (B, W')),
         e.g. ``OverlapNet.score``.
-      capacity: maximum number of stored embeddings.
+      capacity: maximum number of stored embeddings (below 2**24).
       width, channels: embedding shape (reference: 360, 128).
       device: where the store lives and the heads run ("cuda" by default;
         raises if no card is visible).
@@ -51,12 +206,17 @@ class DescriptorDB:
     ):
         self._head = head_apply
         self._capacity = capacity
+        self._check_row_ids()
         self.device = resolve_device(device)
         self._fv = torch.zeros((0, width, channels), device=self.device)
         self._n = 0
 
     def __len__(self) -> int:
         return self._n
+
+    @property
+    def capacity(self) -> int:
+        return self._capacity
 
     @property
     def feature_volumes(self) -> np.ndarray:
@@ -81,7 +241,9 @@ class DescriptorDB:
         if n <= self._fv.shape[0]:
             return
         rows = min(self._capacity, max(n, 2 * self._fv.shape[0], 16))
-        with span("db.grow"):
+        # a normal tensor also when the frame step grows it (under inference
+        # mode), so that rows can be written outside that mode too
+        with span("db.grow"), torch.inference_mode(False):
             grown = torch.zeros((rows,) + self._fv.shape[1:], device=self.device)
             grown[: self._n] = self._fv[: self._n]
             self._fv = grown
@@ -133,17 +295,9 @@ class DescriptorDB:
     def _score(self, fa: torch.Tensor, fb: torch.Tensor):
         """Heads on device tensors, in chunks of MAX_PAIRS_PER_CALL pairs;
         returns host (overlap, yaw_peak, yaw_confidence)."""
-        outs = []
-        for i in range(0, fa.shape[0], MAX_PAIRS_PER_CALL):
-            overlap, logits = self._head(
-                fa[i : i + MAX_PAIRS_PER_CALL], fb[i : i + MAX_PAIRS_PER_CALL]
-            )
-            with span("db.fetch"):
-                outs.append(torch.stack(
-                    [overlap.reshape(-1), subbin_peak(logits), yaw_confidence(logits)]
-                ))
+        scores = self._heads(fa.shape[0], lambda s: (fa[s], fb[s]))
         with span("db.fetch"):
-            res = torch.cat(outs, dim=1).cpu().numpy()
+            res = scores.cpu().numpy()
         return res[0], res[1], res[2]
 
     def score_volumes(self, fa, fb) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -176,32 +330,7 @@ class DescriptorDB:
         return self._score(fa, q[None].expand_as(fa))
 
 
-def _packed_topk(scores: torch.Tensor, gids: torch.Tensor, k: int) -> torch.Tensor:
-    """The best ``k`` columns of ``scores`` (3, n) = [overlap, yaw_peak,
-    yaw_confidence] as one (4, k) float32 tensor [overlap, row_id, yaw_peak,
-    yaw_confidence], best first. Ties go to the lower column (a stable sort),
-    and slots past n hold overlap -1, row 0, peak 0, confidence 0."""
-    n = scores.shape[1]
-    out = scores.new_zeros((4, k))
-    out[0] = -1.0
-    kk = min(k, n)
-    if kk:
-        order = torch.sort(scores[0], descending=True, stable=True).indices[:kk]
-        out[0, :kk] = scores[0, order]
-        out[1, :kk] = gids[order].float()
-        out[2:, :kk] = scores[1:, order]
-    return out
-
-
-def _merge_topk(gathered: torch.Tensor, k: int) -> torch.Tensor:
-    """The best ``k`` of every rank's packed top-k, (D, 4, k) -> (4, k). In
-    rank order a stable sort meets equal overlaps in store order (shard,
-    then slot), so the result is the one store's."""
-    cols = gathered.transpose(0, 1).reshape(4, -1)
-    return _packed_topk(torch.cat([cols[:1], cols[2:]]), cols[1], k)
-
-
-class ShardedDescriptorDB:
+class ShardedDescriptorDB(_FrameStore):
     """Descriptor DB with rows interleaved over ``shards``: global row ``i``
     lives in shard ``i % D`` at slot ``i // D``, so the live prefix of the
     map is always balanced over the shards. Without a mesh all D shards are
@@ -261,13 +390,10 @@ class ShardedDescriptorDB:
         # the shards this process holds: all of them, or the rank's
         self._first, n_local = (0, d) if mesh is None else (mesh.rank, 1)
         self._slots_cap = (capacity + d - 1) // d
-        if self.capacity >= 2**24:
-            # the frame step carries the row id in a float32
-            raise ValueError(f"capacity {self.capacity} must be below 2**24 rows")
+        self._check_row_ids()
         self.device = device_of(device, mesh)
         self._fv = torch.zeros((n_local, self._slots_cap, width, channels), device=self.device)
         self._n = 0
-        self._leg_embed: Callable | None = None
 
     def __len__(self) -> int:
         return self._n
@@ -295,16 +421,6 @@ class ShardedDescriptorDB:
             return rows
         return rows[rows % self._n_dev == self._first]
 
-    def _upload(self, array: np.ndarray) -> torch.Tensor:
-        """Host array -> tensor on the DB's device, without waiting for the
-        device: on a card the bytes go through page-locked memory with a
-        non-blocking copy (the host allocator keeps that block until the
-        copy has run), on the CPU the array is wrapped."""
-        t = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
     def add(self, fv) -> int:
         """Append one (W', C) or a batch (K, W', C) of embeddings; returns the
         first new row."""
@@ -320,13 +436,12 @@ class ShardedDescriptorDB:
                 f"(W', C) = {tuple(self._fv.shape[2:])} — was this cache built "
                 "with a different input_width/model?"
             )
-        if self._mesh is None:
-            rows = torch.arange(self._n, self._n + k, device=self.device)
-            self._fv[rows % self._n_dev, rows // self._n_dev] = fv
-        else:  # this rank keeps the rows it owns
-            mine = slice((self._first - self._n) % self._n_dev, k, self._n_dev)
-            slot0 = (self._n + mine.start) // self._n_dev
-            self._fv[0, slot0 : slot0 + len(range(k)[mine])] = fv[mine]
+        with span("db.insert"):
+            # each shard held here keeps its rows: every D-th, in slot order
+            for local in range(self._fv.shape[0]):
+                mine = slice((self._first + local - self._n) % self._n_dev, k, self._n_dev)
+                slot0 = (self._n + mine.start) // self._n_dev
+                self._fv[local, slot0 : slot0 + len(range(k)[mine])] = fv[mine]
         first = self._n
         self._n += k
         return first
@@ -368,37 +483,11 @@ class ShardedDescriptorDB:
 
     # -- queries -------------------------------------------------------------
 
-    def _live_rows(self, candidate_mask) -> np.ndarray:
-        """Live global rows a (capacity,)-or-shorter bool mask selects (all
-        live rows for None)."""
-        if candidate_mask is None:
-            return np.arange(self._n, dtype=np.int64)
-        return np.flatnonzero(np.asarray(candidate_mask, bool)[: self._n])
-
     def _candidate_rows(self, candidate_mask) -> np.ndarray:
         """The live masked rows held here, in store order: shard-major, which
         is the order in which equal overlaps are ranked."""
         rows = self._held(self._live_rows(candidate_mask))
         return rows[np.argsort(self._flat(rows), kind="stable")]
-
-    def _score_rows(self, query: torch.Tensor, rows: np.ndarray):
-        """Score the (W', C) device ``query`` (right input) against stored
-        global ``rows`` (left input). Returns device tensors: scores (3, n) =
-        [overlap, yaw_peak, yaw_confidence] and the rows as int64. Nothing
-        here waits for the device."""
-        if len(rows) == 0:
-            return (self._fv.new_zeros((3, 0)),
-                    torch.zeros(0, dtype=torch.int64, device=self.device))
-        idx = self._upload(np.stack([self._flat(rows), rows]))
-        flat = self._fv.view(-1, *self._fv.shape[2:])
-        outs = []
-        for i in range(0, len(rows), MAX_PAIRS_PER_CALL):
-            fa = flat.index_select(0, idx[0, i : i + MAX_PAIRS_PER_CALL])
-            overlap, logits = self._head(fa, query[None].expand_as(fa))
-            outs.append(torch.stack(
-                [overlap.reshape(-1), subbin_peak(logits), yaw_confidence(logits)]
-            ))
-        return torch.cat(outs, dim=1), idx[1]
 
     def _masks(self, candidate_mask, qn: int) -> list:
         """One mask (or None) per query from a shared or per-query mask."""
@@ -475,59 +564,3 @@ class ShardedDescriptorDB:
         conf = np.zeros(self.capacity, np.float32)
         overlap[rows], yaw[rows], conf[rows] = scores
         return overlap, yaw, conf
-
-    # -- fused serving frame step ------------------------------------------
-
-    def set_embedder(self, leg_apply: Callable) -> None:
-        """Register the leg function, images (B, H, W, C) -> (B, W', C'),
-        that :meth:`frame_step` embeds with (e.g. ``OverlapNet.encode``)."""
-        self._leg_embed = leg_apply
-
-    @torch.inference_mode()
-    def frame_step(self, image: np.ndarray, candidate_mask) -> tuple[int, tuple]:
-        """Embed ``image``, append the embedding as the next row, and score
-        it against the live masked rows, as one run of device work with no
-        host synchronisation. Requires :meth:`set_embedder`.
-
-        Returns (row, (packed, event)). ``packed`` is a (4,) float32 host
-        tensor [overlap, row_id, yaw_peak, yaw_confidence] owned by this
-        frame; overlap is -1 when no live masked candidate exists. On a card
-        it is page-locked memory that a non-blocking copy fills: read it
-        only after ``event.synchronize()``. On the CPU the step has run by
-        the time it returns and ``event`` is None. The candidate mask indexes
-        GLOBAL rows and cannot select the new row.
-
-        On a mesh every rank embeds the image (the leg is replicated, as in
-        the JAX step) and only the owning rank stores the row. Every rank
-        takes part in the gather of the ranks' best rows on every frame, also
-        with no candidate of its own (it offers overlap -1), so no rank waits
-        on the host; on NCCL the collective is enqueued on the stream.
-        """
-        with span("db.frame_step"):
-            if self._leg_embed is None:
-                raise RuntimeError("frame_step needs set_embedder() first")
-            row = self._n
-            if row >= self.capacity:
-                raise ValueError("ShardedDescriptorDB capacity exceeded")
-            rows = self._candidate_rows(candidate_mask)
-            fv = self._leg_embed(self._upload(np.asarray(image, np.float32))[None])[0]
-            if len(self._held(np.array([row]))):
-                self._fv[row % self._n_dev - self._first, row // self._n_dev] = fv
-            self._n += 1
-            if len(rows):
-                best = _packed_topk(*self._score_rows(fv, rows), 1)
-            elif self._mesh is None:  # nothing to score: the answer is known on the host
-                best = torch.tensor([[-1.0], [0.0], [0.0], [0.0]])
-            else:  # no candidate here; a device tensor for the gather
-                best = self._fv.new_zeros((4, 1))
-                best[0] = -1.0
-            if self._mesh is not None:
-                best = _merge_topk(all_gather(self._mesh, best), 1)
-            best = best[:, 0]
-            if best.device.type != "cuda":
-                return row, (best, None)
-            packed = torch.empty(4, dtype=torch.float32, pin_memory=True)
-            packed.copy_(best, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            return row, (packed, event)

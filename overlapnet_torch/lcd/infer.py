@@ -5,9 +5,9 @@ src/two_heads/infer.py:22-265): leg/head factorization with an incremental
 embedding cache, the three entry points (``infer_one``, ``infer_multiple``,
 ``infer_multiple_vs_multiple``), ``create_feature_volumes``, ``query_best``
 and ``dispatch_frame``. The embedding cache is a ``DescriptorDB`` on the
-serving device or, with ``shards``, a ``ShardedDescriptorDB`` whose fused
-frame step makes ``dispatch_frame`` non-blocking; with ``mesh`` that store
-holds one shard on each rank. Weights load from the
+serving device or, with ``shards``, a ``ShardedDescriptorDB`` (with ``mesh``
+one shard on each rank); on either, ``dispatch_frame`` is the store's fused
+frame step and does not wait for the device. Weights load from the
 flat-key .npz export (``weights.py``), a reference Keras HDF5 file
 (``train/import_keras.py``) or a checkpoint directory of this package's
 trainer (``train/checkpoint.py``).
@@ -35,21 +35,21 @@ MAX_SCANS_PER_CALL = 64
 
 
 class PendingFrame:
-    """Deferred result of :meth:`Infer.dispatch_frame`. A frame of the fused
-    step holds its own (4,) host tensor [overlap, row_id, yaw_peak,
-    yaw_confidence] and, on a card, the event recorded behind the copy that
-    fills it; :attr:`result` waits for that frame alone, on first access.
-    Reading it launches nothing, so any thread may."""
+    """Deferred result of :meth:`Infer.dispatch_frame`. A frame holds its
+    own (4,) host tensor [overlap, row_id, yaw_peak, yaw_confidence] and, on
+    a card, the event recorded behind the copy that fills it; :attr:`result`
+    waits for that frame alone, on first access. Reading it launches
+    nothing, so any thread may."""
 
     def __init__(self, infer: "Infer", frame_id: int, n_candidates: int,
-                 packed: torch.Tensor | None = None, event=None, resolved=None):
+                 packed: torch.Tensor, event=None):
         self._infer = infer
         self.frame_id = frame_id
         self._n_candidates = n_candidates
         self._packed = packed
         self._event = event
-        self._result = resolved
-        self._done = packed is None
+        self._result = None
+        self._done = False
 
     @property
     def result(self):
@@ -85,10 +85,12 @@ class Infer:
       db_capacity: maximum number of cached embeddings.
       device: where the model and the embedding cache live ("cuda" by
         default; raises if no card is visible); with a mesh, the rank's.
-      shards: None keeps the map in a ``DescriptorDB``; a number keeps it in
-        a ``ShardedDescriptorDB`` with that many row-interleaved shards (all
-        on ``device``), which reduces top-k on the device and makes
-        ``dispatch_frame`` the fused non-blocking frame step.
+      shards: None keeps the map in a ``DescriptorDB``, which grows as
+        frames come; a number keeps it in a ``ShardedDescriptorDB`` with that
+        many row-interleaved shards (all on ``device``), allocated at
+        capacity, which also reduces ``infer_multiple`` and ``query_best``
+        to the best k on the device. On both, ``dispatch_frame`` is the
+        fused frame step and does not wait for the device.
       mesh: keeps the map in a ``ShardedDescriptorDB`` with one shard on
         each rank of this ``parallel.mesh.Mesh`` (the JAX ``Infer(mesh=)``).
         Every rank then makes the same calls; the model is replicated.
@@ -121,7 +123,7 @@ class Infer:
             self._db = DescriptorDB(self.model.score, **store)
         else:
             self._db = ShardedDescriptorDB(self.model.score, shards=shards, mesh=mesh, **store)
-            self._db.set_embedder(self.model.encode)
+        self._db.set_embedder(self.model.encode)
         # frame-id -> db row; infer_multiple appends one embedding per call
         # so ids stay aligned like the reference's list (infer.py:184-185).
         self._frame_rows: dict[int, int] = {}
@@ -220,7 +222,7 @@ class Infer:
         return np.array([self._frame_rows[int(f)] for f in frame_ids], np.int64)
 
     def _mask_of(self, rows: np.ndarray) -> np.ndarray:
-        """Global-row candidate mask of the sharded store."""
+        """Global-row candidate mask of the store."""
         mask = np.zeros(self._db.capacity, bool)
         mask[rows] = True
         return mask
@@ -286,34 +288,26 @@ class Infer:
         image: np.ndarray | None = None, fv=None,
     ) -> PendingFrame:
         """Dispatch one serving frame: embed, insert, score against the
-        candidates. ``image`` is used when given instead of the frame's image
-        on disk.
+        candidates, as the store's fused frame step (``frame_step``), which
+        does not wait for the device. ``image`` is used when given instead of
+        the frame's image on disk; with a precomputed embedding ``fv`` the
+        legs do not run.
 
-        On the sharded store this is the fused frame step
-        (``ShardedDescriptorDB.frame_step``) and does not wait for the
-        device: the returned :class:`PendingFrame` resolves on first access
-        to ``.result``. Candidate gating depends only on poses, not on
-        earlier results, so consecutive frames can be dispatched back to back
-        and resolved later (``lcd.online.OnlineLoopCloser.run``).
-
-        On the plain store, or with a precomputed ``fv``, it is the
-        synchronous :meth:`query_best` path and comes back resolved."""
+        The returned :class:`PendingFrame` resolves on first access to
+        ``.result``, to what :meth:`query_best` gives (of equal overlaps, the
+        candidate first in the store's row order: the lowest row, on the
+        plain store and on one shard). Candidate gating depends only on
+        poses, not on earlier results, so consecutive frames can be
+        dispatched back to back and resolved later
+        (``lcd.online.OnlineLoopCloser.run``)."""
         with span("lcd.dispatch"):
-            n_cand = len(candidate_frame_ids)
-            if self.shards is not None and fv is None:
-                if image is None:
-                    image = self._load_image(str(current_frame_id).zfill(6))
-                mask = self._mask_of(self._rows_of(candidate_frame_ids))
-                row, (packed, event) = self._db.frame_step(image, mask)
-                self._frame_rows[int(current_frame_id)] = row
-                self._row_frames[row] = int(current_frame_id)
-                return PendingFrame(self, current_frame_id, n_cand, packed, event)
-            if fv is None and image is not None:
-                with torch.inference_mode():
-                    x = torch.as_tensor(image, dtype=torch.float32, device=self.device)
-                    fv = self.model.encode(x[None])[0]
-            result = self.query_best(current_frame_id, candidate_frame_ids, fv=fv)
-            return PendingFrame(self, current_frame_id, n_cand, resolved=result)
+            if image is None and fv is None:
+                image = self._load_image(str(current_frame_id).zfill(6))
+            mask = self._mask_of(self._rows_of(candidate_frame_ids))
+            row, (packed, event) = self._db.frame_step(image, mask, fv=fv)
+            self._frame_rows[int(current_frame_id)] = row
+            self._row_frames[row] = int(current_frame_id)
+            return PendingFrame(self, current_frame_id, len(candidate_frame_ids), packed, event)
 
     # -- serving-session checkpoint ---------------------------------------
 

@@ -134,11 +134,13 @@ class OnlineLoopCloser:
     ) -> list[LoopClosure]:
         """Process all frames with up to ``pipeline_depth`` frames in
         flight: frame i+1's gating needs only poses, so its fused step is
-        dispatched before frame i's result is read. Reading (a wait on that
-        frame's event, which releases the GIL) runs on a RESOLVER THREAD and
-        overlaps with the next frames' image loading and dispatch. The
-        resolver launches no device work. Results resolve in frame order on
-        the single resolver; closures are identical to the sequential loop.
+        dispatched before frame i's result is read, on either store of
+        ``Infer``. Reading (a wait on that frame's event, which releases the
+        GIL) runs on a RESOLVER THREAD, so the next frames' gating, image
+        loading and dispatch run on the host while the device scores the
+        frames before them. The resolver launches no device work. Results
+        resolve in frame order on the single resolver; closures are
+        identical to the sequential loop.
 
         If resolving a frame raises, dispatch stops, the frames already
         dispatched (they are in the map, and the frame cursor is past them)

@@ -421,7 +421,7 @@ def test_fused_frame_step_matches_sequential_path(tree):
         _assert_same_result(b.result, want, tol=0.0)
     np.testing.assert_array_equal(fused.feature_volumes, seq.feature_volumes)
     np.testing.assert_array_equal(handed.feature_volumes, seq.feature_volumes)
-    # with a precomputed embedding the frame goes the synchronous way
+    # with a precomputed embedding the same step runs without the legs
     done = fused.dispatch_frame(8, [0, 1], fv=seq.feature_volumes[3])
     _assert_same_result(done.result, seq.query_best(8, [0, 1], fv=seq.feature_volumes[3]), tol=0.0)
 

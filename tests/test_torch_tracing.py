@@ -116,10 +116,9 @@ def test_online_loop_spans_nest_and_count_the_frame_work(loop, monkeypatch):
     assert parents == {
         "lcd.frame": {None}, "lcd.handover": {None},
         "lcd.gate": {"lcd.frame"}, "lcd.dispatch": {"lcd.frame"},
-        "lcd.load_image": {"lcd.dispatch"}, "lcd.embed": {"lcd.dispatch"},
-        "model.legs": {"lcd.embed"},
-        "db.insert": {"lcd.dispatch"}, "db.gather": {"lcd.dispatch"},
-        "model.heads": {"lcd.dispatch"}, "db.fetch": {"lcd.dispatch"},
+        "lcd.load_image": {"lcd.dispatch"}, "db.frame_step": {"lcd.dispatch"},
+        "model.legs": {"db.frame_step"}, "db.insert": {"db.frame_step"},
+        "model.heads": {"db.frame_step"}, "db.fetch": {"db.frame_step"},
     }
     dispatcher = {r[3] for r in rows if r[0] == "lcd.frame"}
     assert len(dispatcher) == 1 and {r[3] for r in rows} == dispatcher
