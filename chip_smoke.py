@@ -38,15 +38,35 @@ Phases, each printing one JSON line:
    general one), operations at the TF32 dense rate (``bound_ms``), at three TF32
    passes (``bound_3xtf32_ms``) and in fp32 on the CUDA cores
    (``bound_fp32_simt_ms``), each against the bytes bound.
-3. model: the default 64x900x4 model (bf16 legs, W' = 360), seeded weights,
+3. conv2 (run after kernel_bwd): K3, c_conv2 with its bias and ReLU (TF32
+   on the tensor cores, both operands rounded to nearest, fp32 sums),
+   against its plain PyTorch version in float64 on K1-shaped (B, W', J, 64)
+   channels-last inputs: the head's S = 15 at W' = 360 and 450, B = 256,
+   32, 17, 3 and 1, and S = 8 and 7 at W' = 360. Gates: each pair's
+   relative norm of the error within 5e-4 and the error's slope on the
+   output within 1e-4 (rounding to nearest, not truncation); two calls give
+   the same bits; the result is (B, 128, W' // S, J) with channels-last
+   strides; ``k3.launches`` rises once a call; K3 on the first b pairs of a
+   256-pair input equals those rows of the whole call for every b from 1 to
+   256; with cuDNN's TF32 off (K3's 3xTF32 form) each pair within 1e-5 of
+   float64 and two calls with the same bits. Timed with CUDA events at B =
+   256 and 32 (W' = 360), 256 (W' = 450) and 1, in both forms, beside the
+   byte bound, the plain version (TF32 off) and the library call (cuDNN's
+   TF32 conv + ReLU, what the head ran before K3; never called by the port);
+   K3's and the library's device time alone (``device_ms``, their launches
+   replayed from a CUDA graph: no host time) beside them. The phase leaves
+   cuDNN's TF32 switch as it found it.
+4. model: the default 64x900x4 model (bf16 legs, W' = 360), seeded weights,
    served through ``Infer(device="cuda")``: infer_one, infer_multiple of one
    query against 64 references, query_best and infer_multiple_vs_multiple.
-   K1's launch count must rise; overlaps must be finite in [0, 1] and agree
+   K1's and K3's launch counts must rise; overlaps must be finite in [0, 1] and agree
    with the same ``Infer`` on the CPU (|d| < 5e-3 with bf16 legs, < 1e-3 with
-   fp32 legs); a self-pair's yaw must be 0. Head pairs/s at B = 256 and leg
-   scans/s are printed as information.
+   fp32 legs); a self-pair's yaw must be 0; a profiled head call at B = 256
+   holds no cuDNN ``convertTensor`` row (K3 reads K1's output as it lies).
+   Head pairs/s at B = 256, K1's and K3's ms in that call and leg scans/s
+   are printed as information.
 
-4. lcd: online loop closing at the same full width through
+5. lcd: online loop closing at the same full width through
    ``Infer(cfg, shards=1)`` and ``OnlineLoopCloser``: a seeded 400-frame
    sequence on disk whose second half revisits the first (column-rolled
    copies plus noise), forged poses, and covariances that leave one or a
@@ -71,7 +91,7 @@ Phases, each printing one JSON line:
    each store and stepped, the stepped frame's latency and a profiled
    window's device-busy share are printed as information.
 
-5. kernel_bwd (run after kernel): K2, the backward of K1 (both products
+6. kernel_bwd (run after kernel): K2, the backward of K1 (both products
    3xTF32 wgmma on the tensor cores behind a pre-pass that splits the
    cotangent, sums in a fixed order), against its plain PyTorch version
    ``ops.delta.delta_conv1_backward`` (fp32, TF32 off) on ReLU'd volumes, a
@@ -88,7 +108,7 @@ Phases, each printing one JSON line:
    3xTF32 bound and of the fp32 CUDA-core bound. Two more forms reach beyond
    one call of K2's C entry: C = 64 at W' = 360 (channels zero-padded to
    128) and W' = 495 (W'//S = 33: two column groups), both at B = 4.
-6. train: ``OverlapNetConfig()`` at full width (bf16 legs, W' = 360, batch
+7. train: ``OverlapNetConfig()`` at full width (bf16 legs, W' = 360, batch
    16, Adagrad), seeded weights, a seeded set of scans and column-rolled
    revisits on disk, through ``ResidentPairs`` +
    ``Trainer.run_epoch_resident`` (20 steps), ``PairImageDataset`` +
@@ -108,7 +128,7 @@ Phases, each printing one JSON line:
    ``Infer`` gives the trained model's overlaps (|d| < 5e-3, bf16 legs).
    Step ms, pairs/s and a profiled window's device-busy share and top rows
    are printed as information.
-7. prep: the data-preparation path through the port's CLI at full size: a
+8. prep: the data-preparation path through the port's CLI at full size: a
    seeded two-lap sequence of 300 sim scans (``sim/world.py`` defaults, up to
    130,000 points a scan, padded to 140,000), ``gen-data`` (64x900 depth,
    normal and intensity images), ``gen-gt --all-queries`` (300 x 300
@@ -130,7 +150,7 @@ Phases, each printing one JSON line:
    host clock, the device time of one 256-pair GT chunk by kernel row, the
    pack's build time and ms per step from packs against the resident store
    are printed as information.
-8. e2e: the sim harness ``sim.e2e.run_e2e(device="cuda")`` at full width
+9. e2e: the sim harness ``sim.e2e.run_e2e(device="cuda")`` at full width
    (64 sim frames of up to 130,000 points, ``OverlapNetConfig()`` with
    ``make_config``'s overrides, bf16 legs, W' = 360, 6 epochs at batch 8):
    images, GT, resident training, online loop closing, pose graph. Gates:
@@ -153,7 +173,7 @@ Phases, each printing one JSON line:
    the card and on the CPU and a profiled one-iteration solve are printed as
    information, and the whole metrics dict.
 
-9. dist: the multi-device layer (``parallel/mesh.py`` over
+10. dist: the multi-device layer (``parallel/mesh.py`` over
    torch.distributed). (a) One NCCL rank in this process, started by
    ``maybe_initialize_distributed`` from the ``OVERLAPNET_*`` variables: ``cli
    train`` at full width (5 steps of batch 16, each evaluated) on the mesh
@@ -178,9 +198,13 @@ Phases, each printing one JSON line:
    and frames/s are printed beside the one-device figures as information:
    two ranks on one card measure the mechanism, not scaling.
 
-Then the ``kernels`` line (K1 and K2; launches are the sums over the model,
-lcd, train, prep, e2e and dist phases' main-path runs), the nvidia-smi line,
-and last the result line.
+In each launch count of the phases model, lcd, train, prep, e2e and dist
+(what their main-path runs launched, counted around them), K3 is launched
+exactly as often as K1, once a head call, and at least once.
+
+Then the ``kernels`` line (K1, K2 and K3; each kernel's launches are the
+sums over those phases' main-path runs, by phase; phase conv2's own calls
+are not counted), the nvidia-smi line, and last the result line.
 Any failure raises: the exit code is non-zero and no result line is printed.
 It also fails when no CUDA device is visible, and when run outside a
 checkout of the repository.
@@ -228,17 +252,28 @@ def card_peaks(name: str) -> tuple[float, float, float]:
 
 
 def kernel_launches() -> dict:
-    """K1's and K2's launches so far: the port's ``k1.launches`` and
-    ``k2.launches`` counters (``overlapnet_torch.core.profiling``)."""
+    """K1's, K2's and K3's launches so far: the port's ``k1.launches``,
+    ``k2.launches`` and ``k3.launches`` counters
+    (``overlapnet_torch.core.profiling``)."""
     from overlapnet_torch.core.profiling import totals
 
     t = totals()
-    return {"delta_conv1": t.get("k1.launches", 0), "delta_conv1_bwd": t.get("k2.launches", 0)}
+    return {"delta_conv1": t.get("k1.launches", 0), "delta_conv1_bwd": t.get("k2.launches", 0),
+            "c_conv2_relu": t.get("k3.launches", 0)}
 
 
 def launches_since(start: dict) -> dict:
-    """K1's and K2's launches since ``start`` (a ``kernel_launches()``)."""
+    """K1's, K2's and K3's launches since ``start`` (a ``kernel_launches()``)."""
     return {k: n - start[k] for k, n in kernel_launches().items()}
+
+
+def k3_per_head_call(launches: dict, what: str) -> None:
+    """Every head call on the card launches K1, then K3, once: raises unless
+    ``launches`` (a ``launches_since``) holds some K1 launches and as many
+    of K3."""
+    k1, k3 = launches["delta_conv1"], launches["c_conv2_relu"]
+    if k1 == 0 or k3 != k1:
+        raise RuntimeError(f"{what}: {k3} K3 launches for {k1} K1 launches (head calls)")
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -615,6 +650,152 @@ def phase_kernel_bwd(torch, k1, plain, name, smi):
     return rows
 
 
+# -- phase conv2 ----------------------------------------------------------------
+
+# K3's forms: (form, B, W', S, timed). The head's are S = 15 at W' = 360
+# (J = 24) and 450 (J = 30), at the head call's 256 pairs, at 32, and at the
+# ragged chunks n % 256 (1, 3, 17); then another S that divides W' (8: J =
+# 45) and one that does not (7: the last 3 rows of W' are read by no tap).
+K3_FORMS = [
+    ("b256_w360", 256, 360, 15, True),
+    ("b32_w360", 32, 360, 15, True),
+    ("b256_w450", 256, 450, 15, True),
+    ("b32_w450", 32, 450, 15, False),
+    ("b1_w360", 1, 360, 15, True),
+    ("b3_w360", 3, 360, 15, False),
+    ("b17_w360", 17, 360, 15, False),
+    ("s8_b4_w360", 4, 360, 8, False),
+    ("s7_b4_w360", 4, 360, 7, False),
+]
+# K3's gates against the plain version in float64 on the same inputs. TF32
+# to nearest on both operands with fp32 sums: each pair's relative norm of
+# the error about 3e-4 (truncating both operands instead: 7.9e-4), and the
+# slope of the error on the output, sum(d * ref) / sum(ref^2), about 2e-7
+# (truncation: -7.1e-4, every 960-term sum shrunk alike); a CPU emulation
+# of both roundings on these volumes.
+K3_REL_LIMIT = 5e-4
+K3_SLOPE_LIMIT = 1e-4
+# With cuDNN's TF32 off K3 runs 3xTF32, float32 accuracy: each pair within
+# this of float64 (the benchmark's k1_err limit, a float32-level gate)
+K3_SPLIT_REL_LIMIT = 1e-5
+
+
+def phase_conv2(torch, name, smi):
+    """K3 (c_conv2 + bias + ReLU) against its plain version in float64, its
+    bits across calls and batch splits, and its time beside its byte bound,
+    the plain version (fp32, TF32 off) and the library call (cuDNN's TF32
+    conv + ReLU on the same channels-last input, what the head ran before).
+    Leaves cuDNN's TF32 switch as it found it."""
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        return conv2_forms(torch, name, smi)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def graph_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device time of one ``fn()`` call, its launches replayed from a
+    CUDA graph: no host time between them."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return time_ms(torch, graph.replay, 5) / iters
+
+
+def conv2_forms(torch, name, smi):
+    from overlapnet_torch.kernels import c_conv2_relu as k3
+
+    # cuDNN's TF32 on, PyTorch's default and the head's (phases before this
+    # one turn it off): K3's single TF32 product; each form also runs with it
+    # off (3xTF32) and turns it back on
+    torch.backends.cudnn.allow_tf32 = True
+    _, peak_tf32, peak_bw = card_peaks(name)
+    rows = {}
+    for form, bsz, w, s, timed in K3_FORMS:
+        j = w // S  # K1's right columns at the head's S = 15
+        io = w // s
+        rng = np.random.default_rng(bsz + w + 100 * s)
+        # K1's output as K1 writes it, (B, W', J, 64), viewed as NCHW
+        x = torch.from_numpy(rng.normal(size=(bsz, w, j, 64)).astype(np.float32)).cuda()
+        xv = x.permute(0, 3, 1, 2)
+        limit = math.sqrt(6.0 / (s * 64 + s * 128))
+        wt = rng.uniform(-limit, limit, size=(128, 64, s, 1)).astype(np.float32)
+        wt = torch.from_numpy(wt).cuda()
+        bias = torch.from_numpy(rng.normal(size=(128,)).astype(np.float32) * 0.1).cuda()
+
+        before = kernel_launches()
+        out = k3.c_conv2_relu(xv, wt, bias, stride=s)
+        again = k3.c_conv2_relu(xv, wt, bias, stride=s)
+        torch.cuda.synchronize()
+        rose = launches_since(before)["c_conv2_relu"]
+        if rose != 2:
+            raise RuntimeError(f"{form}: k3.launches rose by {rose}, not 2")
+        if tuple(out.shape) != (bsz, 128, io, j) or not out.permute(0, 2, 3, 1).is_contiguous():
+            raise RuntimeError(f"{form}: K3 gave {tuple(out.shape)} strides {out.stride()}, not "
+                               f"(B, 128, W'//S, J) channels last")
+        if not torch.equal(out, again):
+            raise RuntimeError(f"{form}: two calls of K3 gave different bits")
+        ref = k3.plain_c_conv2_relu(xv.double(), wt.double(), bias.double(), s)
+        d = out.double() - ref
+        pair_errs = (d.flatten(1).norm(dim=1) / ref.flatten(1).norm(dim=1)).tolist()
+        slope = float((d * ref).sum() / (ref * ref).sum())
+        if max(pair_errs) > K3_REL_LIMIT or abs(slope) > K3_SLOPE_LIMIT:
+            raise RuntimeError(f"{form}: K3 against float64: worst pair {max(pair_errs)} (limit "
+                               f"{K3_REL_LIMIT}), slope {slope} (limit {K3_SLOPE_LIMIT})")
+        row = {"worst_pair_rel_err_fp64": max(pair_errs), "error_slope": slope,
+               "max_abs_err": float(d.abs().max())}
+        # TF32 off: the 3xTF32 form
+        torch.backends.cudnn.allow_tf32 = False
+        split = k3.c_conv2_relu(xv, wt, bias, stride=s)
+        if not torch.equal(split, k3.c_conv2_relu(xv, wt, bias, stride=s)):
+            raise RuntimeError(f"{form}: two calls of K3 (3xTF32) gave different bits")
+        torch.backends.cudnn.allow_tf32 = True
+        d = split.double() - ref
+        split_errs = (d.flatten(1).norm(dim=1) / ref.flatten(1).norm(dim=1)).tolist()
+        if max(split_errs) > K3_SPLIT_REL_LIMIT:
+            raise RuntimeError(f"{form}: K3 with TF32 off (3xTF32) against float64: worst pair "
+                               f"{max(split_errs)} (limit {K3_SPLIT_REL_LIMIT})")
+        row["worst_pair_rel_err_fp64_3xtf32"] = max(split_errs)
+        del again, ref, d, split
+        if form == "b256_w360":
+            # every batch a head call of at most 256 pairs can give, as rows
+            # of one call: the same bits whatever the split
+            for bb in range(1, bsz + 1):
+                if not torch.equal(k3.c_conv2_relu(xv[:bb], wt, bias, stride=s), out[:bb]):
+                    raise RuntimeError(f"{form}: K3 on the first {bb} pairs differs from the "
+                                       f"same rows of the whole call")
+            row["batches_bit_equal"] = bsz
+        if timed:
+            row["ms"] = time_ms(torch, lambda: k3.c_conv2_relu(xv, wt, bias, stride=s), 20)
+            row["device_ms"] = graph_ms(torch, lambda: k3.c_conv2_relu(xv, wt, bias, stride=s))
+            torch.backends.cudnn.allow_tf32 = False
+            row["ms_3xtf32"] = time_ms(
+                torch, lambda: k3.c_conv2_relu(xv, wt, bias, stride=s), 20)
+            row["plain_ms"] = time_ms(
+                torch, lambda: k3.plain_c_conv2_relu(xv, wt, bias, s), 10)
+            torch.backends.cudnn.allow_tf32 = True
+            conv = torch.nn.functional.conv2d
+            row["library_ms"] = time_ms(
+                torch, lambda: torch.relu(conv(xv, wt, bias, stride=(s, 1))), 10)
+            row["library_device_ms"] = graph_ms(
+                torch, lambda: torch.relu(conv(xv, wt, bias, stride=(s, 1))))
+            nbytes = 4 * (x.numel() + wt.numel() + bias.numel() + out.numel())
+            flops = 2 * bsz * io * j * 128 * 64 * s
+            t_bytes, t_ops = nbytes / peak_bw * 1e3, flops / peak_tf32 * 1e3
+            row.update({"bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                        "share_of_bound": max(t_bytes, t_ops) / row["device_ms"],
+                        "mbytes": nbytes / 1e6, "gflop": flops / 1e9})
+        rows[form] = row
+        emit({"phase": "conv2", "kernel": k3.NAME, "form": form, "batch": bsz, "w": w,
+              "stride": s, "j": j, **row, "card": smi})
+        del out, x, xv
+    return rows
+
+
 def head_breakdown(torch, score, fa, fb) -> dict:
     """Self device time by profiler row over one head call (torch.profiler):
     K1's kernel time and the top rows, in ms, each row tagged CUDA (a
@@ -633,9 +814,12 @@ def head_breakdown(torch, score, fa, fb) -> dict:
         key=lambda r: -r[2],
     )
     if not rows:
-        return {"k1_ms": None, "top": None}
+        return {"k1_ms": None, "k3_ms": None, "convert_tensor_rows": None, "top": None}
     return {
         "k1_ms": sum(ms for k, _, ms in rows if "delta_conv1" in k),
+        "k3_ms": sum(ms for k, _, ms in rows if "c_conv2_relu_kernel" in k),
+        # cuDNN's layout pass before c_conv2, which K3 replaced
+        "convert_tensor_rows": [k[:80] for k, _, _ in rows if "convertTensor" in k],
         "top": [[k[:80], kind, ms] for k, kind, ms in rows[:8]],
     }
 
@@ -686,9 +870,8 @@ def phase_model(torch, smi):
         res = serve(gpu, names)
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
-        launches = launches_since(k_start)["delta_conv1"]
-        if launches == 0:
-            raise RuntimeError("the serving path launched no delta_conv1 kernel")
+        launches = launches_since(k_start)
+        k3_per_head_call(launches, "the serving path")
         pairs = 1 + 64 + 16 + 4
 
         ov = res["overlaps"]
@@ -725,10 +908,13 @@ def phase_model(torch, smi):
             head_ms = time_ms(torch, lambda: gpu.model.score(fa, fb), 5)
             leg_ms = time_ms(torch, lambda: gpu.model.encode(imgs), 5)
         breakdown = head_breakdown(torch, gpu.model.score, fa, fb)
+        if breakdown["convert_tensor_rows"]:
+            raise RuntimeError(f"a head call still runs cuDNN's layout pass: "
+                               f"{breakdown['convert_tensor_rows']}")
 
     emit({
         "phase": "model", "config": "OverlapNetConfig() 64x900x4, bf16 legs, W'=360",
-        "pairs_served": pairs, "serve_s": serve_s, "delta_conv1_launches": launches,
+        "pairs_served": pairs, "serve_s": serve_s, "launches": launches,
         "overlap_min": float(ov.min()), "overlap_max": float(ov.max()),
         "self_pair_yaw_deg": self_yaw, "best_match": res["best"][0],
         "gpu_vs_cpu_overlap_absdiff_bf16": d_bf16, "gate_bf16": 5e-3,
@@ -901,9 +1087,11 @@ def phase_lcd(torch, smi):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        launches = launches_since(k_start)["delta_conv1"]
-        if launches < scored_frames:
-            raise RuntimeError(f"{launches} delta_conv1 launches for {scored_frames} scored frames")
+        launches = launches_since(k_start)
+        k3_per_head_call(launches, "the pipelined run")
+        if launches["delta_conv1"] < scored_frames:
+            raise RuntimeError(f"{launches['delta_conv1']} delta_conv1 launches for "
+                               f"{scored_frames} scored frames")
         if [c.frame for c in piped.closures] != [i for i, c in enumerate(candidates) if c]:
             raise RuntimeError("not every frame with candidates gave a result")
 
@@ -971,7 +1159,9 @@ def phase_lcd(torch, smi):
         wide.run(pipeline_depth=8)
         torch.cuda.synchronize()
         wide_s = time.perf_counter() - t0
-        wide_launches = launches_since(k_start)["delta_conv1"]
+        wide_launches = launches_since(k_start)
+        k3_per_head_call(wide_launches, "the run without covariances")
+        wide_launches = wide_launches["delta_conv1"]
         most = max(len(c) for c in wide_candidates)
         if wide_launches <= sum(1 for c in wide_candidates if c):
             raise RuntimeError(f"no frame was scored in chunks ({most} candidates at most)")
@@ -1025,7 +1215,7 @@ def phase_lcd(torch, smi):
         "phase": "lcd", "config": "OverlapNetConfig() 64x900x4, bf16 legs, W'=360, shards=1",
         "frames": n, "scored_frames": scored_frames, "pairs_scored": pairs,
         "closures": len(piped.closures), "twin_matches": len(twins),
-        "delta_conv1_launches": launches, "sync_debug_mode": "error: nothing raised",
+        "launches": launches, "sync_debug_mode": "error: nothing raised",
         "frames_per_s_pipelined": n / piped_s, "frames_per_s_pipelined_plain_store": n / plain_s,
         "frames_per_s_stepped": n / stepped_s,
         "pipelined_s": piped_s, "pipelined_plain_store_s": plain_s, "stepped_s": stepped_s,
@@ -1172,10 +1362,11 @@ def phase_train(torch, smi):
         torch.cuda.synchronize()
         launches = launches_since(k_start)
 
-        # (a) one K1 launch per train step, per evaluated batch and per
-        # served request; one K2 launch per train step
+        # (a) one K1 and one K3 launch per train step, per evaluated batch
+        # and per served request; one K2 launch per train step
         train_steps = TRAIN_STEPS + TRAIN_HOST_STEPS + 2
-        if launches != {"delta_conv1": train_steps + 1 + 1, "delta_conv1_bwd": train_steps}:
+        if launches != {"delta_conv1": train_steps + 1 + 1, "delta_conv1_bwd": train_steps,
+                        "c_conv2_relu": train_steps + 1 + 1}:
             raise RuntimeError(f"launches {launches} for {train_steps} train steps, "
                                "1 evaluated batch and 1 served request")
         if saved_step != TRAIN_STEPS + TRAIN_HOST_STEPS or restored.state.step != saved_step + 1:
@@ -1535,7 +1726,8 @@ def phase_prep(torch, smi):
         launches = launches_since(k_start)
         eval_batches = sum(1 for x in lines if x["phase"] == "validation")
         if steps != PREP_STEPS or launches != {"delta_conv1": steps + eval_batches,
-                                               "delta_conv1_bwd": steps}:
+                                               "delta_conv1_bwd": steps,
+                                               "c_conv2_relu": steps + eval_batches}:
             raise RuntimeError(f"launches {launches} for {steps} train steps and "
                                f"{eval_batches} evaluated batch")
         losses = [x for x in lines if x["phase"] == "train"]
@@ -1723,9 +1915,12 @@ def phase_e2e(torch, smi):
         if (train["delta_conv1"], train["delta_conv1_bwd"]) != (steps + eval_batches, steps):
             raise RuntimeError(f"training launched {train} for {steps} steps and "
                                f"{eval_batches} evaluated batches")
+        k3_per_head_call(train, "run_e2e's training")
         lcd = stages["run_lcd"]
         if not 0 < lcd["delta_conv1"] <= E2E_FRAMES or lcd["delta_conv1_bwd"]:
             raise RuntimeError(f"loop closing launched {lcd}")
+        k3_per_head_call(lcd, "run_e2e's loop closing")
+        k3_per_head_call(harness, "run_e2e")
 
         # ---- (b) cli evaluate's evaluate() on the run's validation set with
         # its trained_params.npz (network.yml cannot name the harness's
@@ -1736,12 +1931,13 @@ def phase_e2e(torch, smi):
         t0 = time.perf_counter()
         ev_metrics, ev = cli_evaluate.evaluate(cfg, params, device="cuda")
         evaluate_s = time.perf_counter() - t0
-        ev_launches = launches_since(k_start)["delta_conv1"]
+        ev_launches = launches_since(k_start)
+        k3_per_head_call(ev_launches, "cli evaluate")
         d_rms = abs(ev_metrics["overlap_rms_error"] - m["trained_overlap_rms_error"])
-        if len(ev["pred_overlap"]) != m["train_n_val_pairs"] or d_rms > 1e-3 or not ev_launches:
+        if len(ev["pred_overlap"]) != m["train_n_val_pairs"] or d_rms > 1e-3:
             raise RuntimeError(f"cli evaluate: {len(ev['pred_overlap'])} pairs, overlap RMS "
                                f"{ev_metrics['overlap_rms_error']} against Trainer.evaluate's "
-                               f"{m['trained_overlap_rms_error']}, {ev_launches} K1 launches")
+                               f"{m['trained_overlap_rms_error']}, {ev_launches} launches")
 
     # ---- (c) the pose graph at KITTI 00's length: card against the CPU,
     # two card calls equal, no host sync in the solve
@@ -1795,7 +1991,7 @@ def phase_e2e(torch, smi):
         "trained_overlap_rms_error": m["trained_overlap_rms_error"],
         "untrained_overlap_rms_error": m["untrained_overlap_rms_error"],
         "cli_evaluate": {"s": evaluate_s, "pairs": len(ev["pred_overlap"]),
-                         "delta_conv1": ev_launches, "metrics": ev_metrics,
+                         "launches": ev_launches, "metrics": ev_metrics,
                          "overlap_rms_vs_trainer_evaluate": d_rms},
         "pose_graph": {
             "poses": PG_POSES, "edges": graph.n_edges, **PG_SOLVE,
@@ -1807,8 +2003,7 @@ def phase_e2e(torch, smi):
             "one_iteration_profile": one_iteration},
         "phase_s": time.perf_counter() - phase_t0, "card": smi,
     })
-    return {"delta_conv1": harness["delta_conv1"] + ev_launches,
-            "delta_conv1_bwd": harness["delta_conv1_bwd"]}
+    return {k: harness[k] + ev_launches[k] for k in harness}
 
 
 # -- phase dist -----------------------------------------------------------------
@@ -1971,7 +2166,7 @@ def dist_rank(rank: int, work: str) -> int:
     sharded.run(pipeline_depth=8)
     torch.cuda.synchronize()
     out["lcd_s"] = time.perf_counter() - t0
-    out["lcd_launches"] = {"delta_conv1": launches_since(k_start)["delta_conv1"]}
+    out["lcd_launches"] = {k: launches_since(k_start)[k] for k in ("delta_conv1", "c_conv2_relu")}
     arrays["closures"] = np.array([[c.frame, c.match, c.overlap, c.yaw_deg, c.confidence]
                                    for c in sharded.closures], np.float64)
     barrier(mesh)
@@ -2029,7 +2224,7 @@ def phase_dist(torch, smi):
     phase_t0 = time.perf_counter()
     cfg = OverlapNetConfig()
     out_width = leg_output_width(cfg.model)
-    launches = {"delta_conv1": 0, "delta_conv1_bwd": 0}
+    launches = {"delta_conv1": 0, "delta_conv1_bwd": 0, "c_conv2_relu": 0}
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "train")
         table = write_train_set(data, cfg.model.input_height, cfg.model.input_width, out_width)
@@ -2070,7 +2265,8 @@ def phase_dist(torch, smi):
                         for k in ck_s["params"])
                 raise RuntimeError(f"a mesh of one NCCL rank differs from no mesh: {len(differ)} "
                                    f"tensors, up to {d}; logs {log_m[-2:]} vs {log_s[-2:]}")
-            if train_launches != {"delta_conv1": 2 * DIST_STEPS, "delta_conv1_bwd": DIST_STEPS}:
+            if train_launches != {"delta_conv1": 2 * DIST_STEPS, "delta_conv1_bwd": DIST_STEPS,
+                                  "c_conv2_relu": 2 * DIST_STEPS}:
                 raise RuntimeError(f"cli train on the mesh: launches {train_launches} for "
                                    f"{DIST_STEPS} steps and {DIST_STEPS} evaluated batches")
 
@@ -2094,7 +2290,9 @@ def phase_dist(torch, smi):
                 mesh_lcd_s = time.perf_counter() - t0
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-            lcd_launches = launches_since(k_start)["delta_conv1"]
+            lcd_launches = launches_since(k_start)
+            k3_per_head_call(lcd_launches, "Infer on a mesh of one rank")
+            lcd_launches = lcd_launches["delta_conv1"]
             scored = len(on_mesh.closures)
             if lcd_launches < scored or scored < LCD_OUT // 2:
                 raise RuntimeError(f"{lcd_launches} K1 launches for {scored} scored frames")
@@ -2119,6 +2317,7 @@ def phase_dist(torch, smi):
         for k, v in train_launches.items():
             launches[k] += v
         launches["delta_conv1"] += lcd_launches
+        launches["c_conv2_relu"] += lcd_launches
 
         # ---- (b) two gloo ranks on the one card (kernels built above)
         env = {**os.environ, "OVERLAPNET_COORDINATOR": f"127.0.0.1:{free_port()}",
@@ -2158,13 +2357,16 @@ def phase_dist(torch, smi):
     for info in ranks:
         if not info["params_equal_across_ranks"]:
             failures.append("two ranks' parameters differ after the data-parallel steps")
-        want = {"delta_conv1": DIST_STEPS + 1, "delta_conv1_bwd": DIST_STEPS}
+        want = {"delta_conv1": DIST_STEPS + 1, "delta_conv1_bwd": DIST_STEPS,
+                "c_conv2_relu": DIST_STEPS + 1}
         if info["train_launches"] != want:
             failures.append(f"rank {info['rank']}: launches {info['train_launches']}, want {want}")
-        if info["lcd_launches"]["delta_conv1"] < 1:
-            failures.append(f"rank {info['rank']} launched no K1 in the sharded map")
-        for k in ("delta_conv1", "delta_conv1_bwd"):
-            launches[k] += info["train_launches"][k] + info["lcd_launches"].get(k, 0)
+        lcd = info["lcd_launches"]
+        if lcd["delta_conv1"] < 1 or lcd["c_conv2_relu"] != lcd["delta_conv1"]:
+            failures.append(f"rank {info['rank']}: {lcd} in the sharded map (K1 at least once, "
+                            "K3 once per K1)")
+        for k in launches:
+            launches[k] += info["train_launches"][k] + lcd.get(k, 0)
     got, want = r0["train_metrics"][0], r0["ref_train_metrics"][0]
     d_loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
     if d_loss > 1e-5:
@@ -2216,8 +2418,8 @@ def phase_dist(torch, smi):
                 "params_step5_beyond_rtol1e-4_atol1e-6": r0["params_step5_beyond_tol"],
                 "n_params": r0["n_params"], "params_equal_across_ranks": True,
                 "eval_two_ranks": r0["eval"], "eval_one_device": r0["ref_eval"]},
-            "launches_per_rank": [{**r["train_launches"], "lcd_delta_conv1":
-                                   r["lcd_launches"]["delta_conv1"]} for r in ranks],
+            "launches_per_rank": [{"train": r["train_launches"], "lcd": r["lcd_launches"]}
+                                  for r in ranks],
             "step_ms_default_model": {"two_ranks_8_pairs_each": [r["step_ms_two_ranks"] for r in ranks],
                                       "one_device_16_pairs": r0["step_ms_one_device"]},
             "lcd": {"frames": 2 * LCD_OUT, "closures": len(ref), "overlap_absdiff": d_overlap,
@@ -2234,7 +2436,7 @@ def phase_dist(torch, smi):
     return launches
 
 
-PHASES = ("kernel", "kernel_bwd", "model", "lcd", "train", "prep", "e2e", "dist")
+PHASES = ("kernel", "kernel_bwd", "conv2", "model", "lcd", "train", "prep", "e2e", "dist")
 
 
 def main(argv: list[str]) -> int:
@@ -2257,6 +2459,7 @@ def main(argv: list[str]) -> int:
     run = {
         "kernel": lambda: phase_kernel(torch, k1, plain, name, smi),
         "kernel_bwd": lambda: phase_kernel_bwd(torch, k1, plain, name, smi),
+        "conv2": lambda: phase_conv2(torch, name, smi),
         "model": lambda: phase_model(torch, smi),
         "lcd": lambda: phase_lcd(torch, smi),
         "train": lambda: phase_train(torch, smi),
@@ -2268,10 +2471,11 @@ def main(argv: list[str]) -> int:
     if only:  # a part of the run, for development: no result line
         print(smi, flush=True)
         return 0
-    fwd, bwd = out["kernel"], out["kernel_bwd"]
-    k1_launches = {"model": out["model"], "lcd": out["lcd"],
-                   **{p: out[p]["delta_conv1"] for p in ("train", "prep", "e2e", "dist")}}
+    fwd, bwd, k3_rows = out["kernel"], out["kernel_bwd"], out["conv2"]
+    main_path = ("model", "lcd", "train", "prep", "e2e", "dist")
+    k1_launches = {p: out[p]["delta_conv1"] for p in main_path}
     k2_launches = {p: out[p]["delta_conv1_bwd"] for p in ("train", "prep", "e2e", "dist")}
+    k3_launches = {p: out[p]["c_conv2_relu"] for p in main_path}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "bound_3xtf32_ms", "bound_fp32_simt_ms")
     emit({"kernels": [{
@@ -2295,6 +2499,23 @@ def main(argv: list[str]) -> int:
         "ms_b32_w360": bwd["b32_w360"]["ms"], "ms_only_dkernel_b16_w360":
         bwd["frozen_legs_b16_w360"]["ms"],
         "ms_c64_b4_w360": bwd["c64_b4_w360"]["ms"], "ms_b4_w495": bwd["b4_w495"]["ms"],
+    }, {
+        "name": "c_conv2_relu", "route": "cuda", "source": "overlapnet_torch/csrc/c_conv2_relu.cu",
+        "replaces": "none: the JAX package leaves c_conv2 to XLA",
+        "launches": sum(k3_launches.values()), "launches_by_phase": k3_launches,
+        "shape": "B=256, W'=360 (the head call's)",
+        **{k: k3_rows["b256_w360"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms", "share_of_bound")},
+        "share_of_bound_is": "bound_ms over device_ms_b256_w360",
+        "worst_pair_rel_err_fp64_all_forms": max(
+            r["worst_pair_rel_err_fp64"] for r in k3_rows.values()),
+        "ms_b32_w360": k3_rows["b32_w360"]["ms"], "ms_b256_w450": k3_rows["b256_w450"]["ms"],
+        "ms_b1_w360": k3_rows["b1_w360"]["ms"], "ms_3xtf32": k3_rows["b256_w360"]["ms_3xtf32"],
+        **{f"device_ms_{f}": k3_rows[f]["device_ms"] for f in ("b256_w360", "b32_w360", "b1_w360")},
+        **{f"library_device_ms_{f}": k3_rows[f]["library_device_ms"]
+           for f in ("b256_w360", "b32_w360", "b1_w360")},
+        "worst_pair_rel_err_fp64_3xtf32_all_forms": max(
+            r["worst_pair_rel_err_fp64_3xtf32"] for r in k3_rows.values()),
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

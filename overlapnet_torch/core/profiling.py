@@ -36,7 +36,7 @@ loop's resolver) neither ends a stretch nor adds to its record.
 The names (PERF.md, section 3, lists each with the metric or use that
 reads it): ``lcd.*`` the online loop and the serving engine, ``db.*`` the
 descriptor store, ``model.*`` the legs and heads, ``k1.*``/``k2.*``/
-``kernels.*`` the CUDA kernels and their build, ``gt.*`` the ground-truth
+``k3.*``/``kernels.*`` the CUDA kernels and their build, ``gt.*`` the ground-truth
 engine, ``train.*`` the training loop.
 """
 

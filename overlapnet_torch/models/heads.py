@@ -14,9 +14,20 @@ import torch.nn.functional as F
 
 from overlapnet_torch.core.config import ModelConfig
 from overlapnet_torch.core.leg_specs import leg_output_width
+from overlapnet_torch.kernels.c_conv2_relu import c_conv2_relu
 from overlapnet_torch.kernels.delta_conv1 import delta_conv1
 from overlapnet_torch.models.legs import Conv2d, Dense, torch_dtype
 from overlapnet_torch.ops.correlation import circular_correlation
+
+
+class StridedConvReLU(Conv2d):
+    """c_conv2 with its ReLU: a (S, 1) conv at stride (S, 1) through
+    ``kernels.c_conv2_relu`` (K3 for a CUDA tensor, its plain PyTorch version
+    for a CPU tensor). Its parameters are a ``Conv2d``'s, so the checkpoint
+    keys stay ``c_conv2.weight`` / ``c_conv2.bias``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return c_conv2_relu(x, self.weight, self.bias, stride=self.stride[0])
 
 
 class DeltaConv1OverlapHead(nn.Module):
@@ -25,8 +36,11 @@ class DeltaConv1OverlapHead(nn.Module):
     Fused delta + c_conv1 (linear) -> c_conv2 SxS-grid ReLU conv -> c_conv3
     3x3 ReLU conv -> NHWC flatten -> Linear(1) sigmoid ('overlap_output').
 
-    c_conv1 always goes through ``kernels.delta_conv1``: the CUDA kernel for
-    a CUDA tensor, its plain PyTorch version for a CPU tensor.
+    c_conv1 always goes through ``kernels.delta_conv1`` (K1) and c_conv2 with
+    its ReLU through ``kernels.c_conv2_relu`` (K3): the CUDA kernel for a CUDA
+    tensor, its plain PyTorch version for a CPU tensor. K3 reads K1's
+    channels-last output as it lies and hands c_conv3 its result channels
+    last.
     ``ModelConfig.delta_head_impl`` is not read: its default 'xla' relied on
     a compiler fusing the abs-diff into the conv, which eager PyTorch lacks.
     """
@@ -38,7 +52,7 @@ class DeltaConv1OverlapHead(nn.Module):
         self.compute_dtype = torch_dtype(cfg.compute_dtype)
         j = leg_output_width(cfg) // s
         self.c_conv1 = Conv2d(in_channels, 64, (1, s))  # weight (F, C, 1, S)
-        self.c_conv2 = Conv2d(64, 128, (s, 1), (s, 1))
+        self.c_conv2 = StridedConvReLU(64, 128, (s, 1), (s, 1))
         self.c_conv3 = Conv2d(128, 256, (3, 3))
         self.overlap_output = Dense((j - 2) * (j - 2) * 256, 1)
 
@@ -49,7 +63,7 @@ class DeltaConv1OverlapHead(nn.Module):
             kernel, self.c_conv1.bias, stride=self.stride,
         )  # (B, W', J, F) float32
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)  # NCHW
-        x = F.relu(self.c_conv2(x))
+        x = self.c_conv2(x)  # ReLU'd
         x = F.relu(self.c_conv3(x))
         # The Dense's rows follow an NHWC flatten in the JAX package.
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).float()
