@@ -19,7 +19,7 @@ Phases, each printing one JSON line:
    plain PyTorch version (fp32, TF32 off) within rtol/atol 1e-4 in every
    form the serving path gives it, on float32 volumes (K1's general path:
    B = 32 at W' = 360 and 450, one query expanded over 32 candidates (batch
-   stride 0, as ``DescriptorDB.query``), no bias, B = 1, and B = 256, the
+   stride 0, as the store's ``_score_rows``), no bias, B = 1, and B = 256, the
    head's batch) and on bf16-valued volumes, the bf16 legs' output (its
    exact path: B = 32 and 256 at W' = 360 and 450, one query over 256
    candidates, B = 1), and on bf16-valued volumes with an offset of 3, 5,
@@ -76,20 +76,22 @@ Phases, each printing one JSON line:
    candidate is compared, not only the accepted ones. Gates: (a) the
    pipelined ``run(pipeline_depth=8)`` gives the closures of an engine
    stepped frame by frame (frame and match equal, the rest to 1e-6); (b) the
-   fused frame step equals the sequential path (``Infer(shards=None)``
+   fused frame step equals the sequential path (``Infer(cfg).infer_multiple``
    scoring the same embeddings: overlap within 2e-5, the same match unless
    that path's own overlaps for the two ids lie within 2e-5); (c) a short
    prefix with fp32 legs agrees with the same engine on the CPU (overlap
    |d| < 1e-3); (d) the whole pipelined run raises nothing under
    ``torch.cuda.set_sync_debug_mode("error")`` and launches K1 at least once
    per frame that had candidates; (e) a revisit matched to its twin has the
-   yaw of the roll that made it, within one bin; (f) the plain store
-   (``Infer(cfg)``, no shards) pipelined the same way raises nothing under
-   the same mode, returns every frame from ``dispatch_frame`` unresolved
-   (an event behind it), and gives the sharded store's closures frame by
-   frame (frame and match equal, the rest to 1e-6). Frames/s pipelined on
-   each store and stepped, the stepped frame's latency and a profiled
-   window's device-busy share are printed as information.
+   yaw of the roll that made it, within one bin; (f) ``Infer(cfg)`` (no
+   shards argument: what the benchmark's dense cell builds) pipelined the
+   same way raises nothing under the same mode, returns every frame from
+   ``dispatch_frame`` unresolved (an event behind it), and gives
+   ``Infer(cfg, shards=1)``'s closures frame by frame (frame and match
+   equal, the rest to 1e-6). Both keep one store, which grows in the frame
+   step. Frames/s pipelined on each and stepped, the stepped frame's
+   latency and a profiled window's device-busy share are printed as
+   information.
 
 6. kernel_bwd (run after kernel): K2, the backward of K1 (both products
    3xTF32 wgmma on the tensor cores behind a pre-pass that splits the
@@ -1095,9 +1097,9 @@ def phase_lcd(torch, smi):
         if [c.frame for c in piped.closures] != [i for i, c in enumerate(candidates) if c]:
             raise RuntimeError("not every frame with candidates gave a result")
 
-        # the plain store (Infer without shards), pipelined the same way: no
-        # host synchronisation, every frame dispatched unresolved, and the
-        # sharded store's result frame by frame
+        # Infer without a shards argument (the dense cell's), pipelined the
+        # same way: no host synchronisation, every frame dispatched
+        # unresolved, and the shards=1 engine's result frame by frame
         plain = engine(covs, shards=None)
         dispatch, unresolved = plain.infer.dispatch_frame, []
 
@@ -1116,9 +1118,9 @@ def phase_lcd(torch, smi):
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         if len(unresolved) != n or not all(unresolved):
-            raise RuntimeError(f"the plain store resolved {unresolved.count(False)} of "
+            raise RuntimeError(f"Infer(cfg) resolved {unresolved.count(False)} of "
                                f"{len(unresolved)} frames at dispatch")
-        same_closures(plain.closures, piped.closures, "plain store vs sharded store")
+        same_closures(plain.closures, piped.closures, "Infer(cfg) vs Infer(cfg, shards=1)")
 
         # (a) stepped frame by frame, with each frame's dispatch-to-result time
         stepped = engine(covs)

@@ -65,8 +65,8 @@ def main(argv: list[str]) -> int:
     )
     ap.add_argument(
         "--no-mesh", action="store_true",
-        help="use the plain DescriptorDB on this process's card, which grows "
-             "as frames come (the same non-blocking frame step; no mesh)",
+        help="keep the whole map on this process's card (one shard, the same "
+             "non-blocking frame step; no mesh)",
     )
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile-dir", default="",

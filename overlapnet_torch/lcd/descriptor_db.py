@@ -1,17 +1,21 @@
 """Descriptor database: cached leg embeddings scored by the pairwise heads.
 
-``DescriptorDB`` keeps a float32 (rows, W', C) tensor on the serving device
-that grows by doubling up to ``capacity``. Its queries run the heads on the
-device and bring back only per-pair results: overlap, sub-bin yaw peak and
-yaw confidence.
+One store, ``_Store``, keeps float32 (W', C) embeddings on the serving
+device with rows interleaved over D shards: global row ``i`` lives in shard
+``i % D`` at slot ``i // D``, so the live prefix of the map is always
+balanced over the shards. Without a mesh this process holds all D shards,
+one (D, slots, W', C) tensor; on a mesh of D ranks (the JAX store sharded on
+the device axis) rank d holds only shard d. The slots grow by doubling up to
+``capacity``. Stored rows are gathered on the device and scored against a
+query in head calls of at most MAX_PAIRS_PER_CALL pairs; only per-pair
+results come back: overlap, sub-bin yaw peak and yaw confidence.
 
-``ShardedDescriptorDB`` is allocated at capacity, rows interleaved over
-shards, candidates chosen by a global-row mask and the best k reduced on the
-device. Its shards live on one device, or one on each rank of a mesh.
-
-Both stores have the online loop closer's fused frame step (embed + insert
-+ masked top-1, ``frame_step``), which never waits for the device: the best
-candidate's four numbers land in page-locked memory behind an event.
+``DescriptorDB`` is the store with one shard and the JAX package's
+single-device queries; ``ShardedDescriptorDB`` takes D shards or a mesh and
+the JAX sharded store's best-k queries. Both have the online loop closer's
+fused frame step (embed + insert + masked top-1, ``frame_step``), which
+never waits for the device: the best candidate's four numbers land in
+page-locked memory behind an event.
 """
 
 from __future__ import annotations
@@ -21,10 +25,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from overlapnet_torch.core.device import resolve_device
 from overlapnet_torch.core.profiling import count, span
 from overlapnet_torch.ops.correlation import subbin_peak, yaw_confidence
-from overlapnet_torch.parallel.mesh import Mesh, all_gather, device_of, save_npz
+from overlapnet_torch.parallel.mesh import Mesh, all_gather, all_reduce_sum, device_of, save_npz
 
 # Pairs per head call: bounds the c_conv1 output (B x 360 x 24 x 64 fp32,
 # 566 MB at B = 256) however many candidates a query has.
@@ -56,22 +59,64 @@ def _merge_topk(gathered: torch.Tensor, k: int) -> torch.Tensor:
     return _packed_topk(torch.cat([cols[:1], cols[2:]]), cols[1], k)
 
 
-class _FrameStore:
-    """What both stores share: host arrays sent to the device without a
-    wait, stored rows scored against a query in head calls of at most
-    MAX_PAIRS_PER_CALL pairs, and the fused frame step. A store sets
-    ``_head``, ``device``, ``_fv`` (..., W', C) and ``_n`` and gives
-    ``capacity`` and ``add``. Here a global row is a row of ``_fv``; a
-    store laid out otherwise gives ``_flat`` and ``_candidate_rows``, and
-    sets ``_mesh`` where its shards are spread over the ranks of a mesh."""
+class _Store:
+    """The descriptor store (module docstring); arguments as
+    :class:`ShardedDescriptorDB`'s.
 
-    _mesh: Mesh | None = None
+    On a mesh every rank makes the same calls with the same arguments, as
+    the JAX package's processes do: an added row is kept by the rank that
+    owns it, each rank scores its own masked live rows, and the ranks'
+    results are gathered. Results equal the one-device store's with D
+    shards, up to the rounding of the heads on other batch sizes.
+
+    Candidates are chosen by a GLOBAL-row mask, host data, so the rows and
+    their count are known without asking the device; only live masked rows
+    are scored, and of equal overlaps the row first in store order
+    (shard-major) wins.
+    """
+
     _leg_embed: Callable | None = None
 
-    def _check_row_ids(self) -> None:
+    def __init__(
+        self,
+        head_apply: Callable,
+        capacity: int = 8192,
+        width: int = 360,
+        channels: int = 128,
+        shards: int | None = None,
+        device=None,
+        mesh: Mesh | None = None,
+    ):
+        d = int((1 if mesh is None else mesh.size) if shards is None else shards)
+        if d < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        if mesh is not None and d != mesh.size:
+            raise ValueError(f"{d} shards on a mesh of {mesh.size} ranks")
+        self._head = head_apply
+        self._mesh = mesh
+        self._n_dev = d
+        # the shards this process holds: all of them, or the rank's
+        self._first, n_local = (0, d) if mesh is None else (mesh.rank, 1)
+        self._slots_cap = (capacity + d - 1) // d
         if self.capacity >= 2**24:
             # the frame step carries the row id in a float32
             raise ValueError(f"capacity {self.capacity} must be below 2**24 rows")
+        self.device = device_of(device, mesh)
+        self._fv = torch.zeros((n_local, 0, width, channels), device=self.device)
+        self._n = 0
+
+    def __len__(self) -> int:
+        return self._n
+
+    @property
+    def capacity(self) -> int:
+        return self._n_dev * self._slots_cap
+
+    # -- storage -------------------------------------------------------------
+
+    def _tensor(self, x) -> torch.Tensor:
+        """A float32 tensor on the store's device from an array or tensor."""
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     def _upload(self, x) -> torch.Tensor:
         """A host array or tensor on the store's device, without waiting for
@@ -83,9 +128,85 @@ class _FrameStore:
             return t.contiguous().pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
+    def _reserve(self, n: int) -> None:
+        """Grow the shards held here (doubling their slots, capped at
+        capacity, 16 rows at least) to hold n rows."""
+        if n > self.capacity:
+            raise ValueError(f"{type(self).__name__} capacity {self.capacity} exceeded")
+        d, slots = self._n_dev, self._fv.shape[1]
+        if -(-n // d) <= slots:
+            return
+        grown_slots = min(self._slots_cap, max(-(-n // d), 2 * slots, -(-16 // d)))
+        live = -(-self._n // d)
+        # a normal tensor also when the frame step grows it (under inference
+        # mode), so that rows can be written outside that mode too
+        with span("db.grow"), torch.inference_mode(False):
+            grown = torch.zeros((self._fv.shape[0], grown_slots, *self._fv.shape[2:]),
+                                device=self.device)
+            grown[:, :live] = self._fv[:, :live]
+            self._fv = grown
+        count("db.grows")
+
+    def add(self, fv) -> int:
+        """Append one (W', C) or a batch (K, W', C) of embeddings; returns the
+        first new row."""
+        with span("db.insert"):
+            fv = self._tensor(fv)
+            if fv.dim() == 2:
+                fv = fv[None]
+            if fv.shape[1:] != self._fv.shape[2:]:
+                raise ValueError(
+                    f"embedding shape {tuple(fv.shape[1:])} does not match the DB's "
+                    f"(W', C) = {tuple(self._fv.shape[2:])} — was this cache built "
+                    "with a different input_width/model?"
+                )
+            k = fv.shape[0]
+            self._reserve(self._n + k)
+            # each shard held here keeps its rows: every D-th, in slot order
+            for local in range(self._fv.shape[0]):
+                mine = slice((self._first + local - self._n) % self._n_dev, k, self._n_dev)
+                slot0 = (self._n + mine.start) // self._n_dev
+                self._fv[local, slot0 : slot0 + len(range(k)[mine])] = fv[mine]
+            first = self._n
+            self._n += k
+            return first
+
+    def load(self, fv) -> int:
+        """Replace the whole store with ``fv`` (N, W', C); returns N. On a
+        mesh every rank loads the same rows and keeps its own."""
+        if len(fv) > self.capacity:
+            raise ValueError(f"bulk load of {len(fv)} rows exceeds capacity {self.capacity}")
+        self._n = 0
+        self.add(fv)
+        return self._n
+
+    @property
+    def feature_volumes(self) -> np.ndarray:
+        """Live embeddings in global row order (copied to the host: O(n)). On
+        a mesh the ranks' shards are gathered first: every rank must ask."""
+        shards = self._fv[:, : -(-self._n // self._n_dev)]
+        if self._mesh is not None:
+            shards = all_gather(self._mesh, shards[0])
+        live = shards.transpose(0, 1).reshape(-1, *self._fv.shape[2:])
+        return live[: self._n].cpu().numpy()
+
+    def save(self, path: str) -> None:
+        """Persist the live embeddings in global row order to ``path`` (.npz),
+        the format both DBs of the JAX package write and read. On a mesh
+        rank 0 writes and every rank returns once the file is there."""
+        save_npz(self._mesh, path, feature_volumes=self.feature_volumes)
+
+    def restore(self, path: str) -> int:
+        """Load embeddings saved by :meth:`save`; returns the row count."""
+        with np.load(path) as data:
+            return self.load(data["feature_volumes"])
+
+    # -- scoring -------------------------------------------------------------
+
     def _flat(self, rows: np.ndarray) -> np.ndarray:
-        """Global rows -> rows of ``_fv`` viewed as (rows, W', C)."""
-        return rows
+        """Global rows held here -> row indices of this process's store
+        viewed as (local shards * slots, W', C)."""
+        return (rows % self._n_dev - self._first) * self._fv.shape[1] + rows // self._n_dev
 
     def _live_rows(self, candidate_mask) -> np.ndarray:
         """Live global rows a (capacity,)-or-shorter bool mask selects (all
@@ -95,9 +216,12 @@ class _FrameStore:
         return np.flatnonzero(np.asarray(candidate_mask, bool)[: self._n])
 
     def _candidate_rows(self, candidate_mask) -> np.ndarray:
-        """The live masked rows this process scores, in the order in which
-        equal overlaps are ranked."""
-        return self._live_rows(candidate_mask)
+        """The live masked rows held here, in store order: shard-major, which
+        is the order in which equal overlaps are ranked."""
+        rows = self._live_rows(candidate_mask)
+        if self._mesh is not None:
+            rows = rows[rows % self._n_dev == self._first]
+        return rows[np.argsort(self._flat(rows), kind="stable")]
 
     def _heads(self, n: int, pairs: Callable[[slice], tuple]) -> torch.Tensor:
         """Device scores (3, n) = [overlap, yaw_peak, yaw_confidence] of n
@@ -114,7 +238,8 @@ class _FrameStore:
 
     def _score_rows(self, query: torch.Tensor, rows: np.ndarray):
         """Score the (W', C) device ``query`` (right input) against stored
-        global ``rows`` (left input). Returns device tensors: scores (3, n) =
+        global ``rows`` held here (left input), each chunk's rows gathered
+        for its head call. Returns device tensors: scores (3, n) =
         [overlap, yaw_peak, yaw_confidence] and the rows as int64. Nothing
         here waits for the device."""
         if len(rows) == 0:
@@ -128,6 +253,42 @@ class _FrameStore:
             return fa, query[None].expand_as(fa)
 
         return self._heads(len(rows), pairs), idx[1]
+
+    @staticmethod
+    def _fetch(scores: torch.Tensor) -> np.ndarray:
+        with span("db.fetch"):
+            return scores.cpu().numpy()
+
+    @torch.inference_mode()
+    def query_rows(self, query_fv, rows) -> np.ndarray:
+        """Host scores (3, len(rows)) = [overlap, yaw_peak, yaw_confidence]
+        of the (W', C) query (right input) against stored global ``rows``
+        (left input) as given: a row listed twice has its scores at both
+        places, a row that is not live reads 0. Each live row is scored
+        once, by the process that holds it; on a mesh every rank must ask,
+        and the ranks' (3, capacity) tables are summed (a row is filled on
+        its owner's rank only, so adding the zeros is exact)."""
+        rows = np.asarray(rows, np.int64)
+        mask = np.zeros(self.capacity, bool)
+        mask[rows] = True
+        scores, idx = self._score_rows(self._tensor(query_fv), self._candidate_rows(mask))
+        table = scores.new_zeros((3, self.capacity))
+        table[:, idx] = scores
+        if self._mesh is not None:
+            all_reduce_sum(self._mesh, table)
+        return self._fetch(table)[:, rows]
+
+    @torch.inference_mode()
+    def score_volumes(self, fa, fb) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Score explicit (n, W', C) left/right feature-volume batches (no
+        stored rows; on a mesh, on this rank alone); returns (overlap (n,),
+        yaw_peak (n,) float sub-bin positions, yaw_confidence (n,))."""
+        if len(fa) == 0:
+            return (np.zeros(0, np.float32),) * 3
+        fa, fb = self._tensor(fa), self._tensor(fb)
+        return tuple(self._fetch(self._heads(len(fa), lambda s: (fa[s], fb[s]))))
+
+    # -- the online loop closer's frame step ----------------------------------
 
     def set_embedder(self, leg_apply: Callable) -> None:
         """Register the leg function, images (B, H, W, C) -> (B, W', C'),
@@ -149,7 +310,9 @@ class _FrameStore:
         only after ``event.synchronize()``. On the CPU the step has run by
         the time it returns and ``event`` is None. The candidate mask indexes
         GLOBAL rows and cannot select the new row; of equal overlaps the
-        row first in the store's order wins.
+        row first in the store's order wins. The store grows in the step
+        when it must: the caching allocator orders the reuse of the old
+        block after the frames still in flight on the stream.
 
         On a mesh every rank embeds the image (the leg is replicated, as in
         the JAX step) and only the owning rank stores the row. Every rank
@@ -184,8 +347,9 @@ class _FrameStore:
                 return row, (packed, event)
 
 
-class DescriptorDB(_FrameStore):
-    """Single-device descriptor DB.
+class DescriptorDB(_Store):
+    """The store with one shard, and the JAX package's single-device
+    ``DescriptorDB`` queries.
 
     Args:
       head_apply: (fa, fb) -> (overlap (B, 1), orientation logits (B, W')),
@@ -204,116 +368,28 @@ class DescriptorDB(_FrameStore):
         channels: int = 128,
         device="cuda",
     ):
-        self._head = head_apply
-        self._capacity = capacity
-        self._check_row_ids()
-        self.device = resolve_device(device)
-        self._fv = torch.zeros((0, width, channels), device=self.device)
-        self._n = 0
+        super().__init__(head_apply, capacity, width, channels, shards=1, device=device)
 
-    def __len__(self) -> int:
-        return self._n
-
-    @property
-    def capacity(self) -> int:
-        return self._capacity
-
-    @property
-    def feature_volumes(self) -> np.ndarray:
-        return self._fv[: self._n].cpu().numpy()
-
-    def _tensor(self, x) -> torch.Tensor:
-        """A float32 tensor on the DB's device from an array or tensor."""
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
-
-    def _rows(self, idxs) -> torch.Tensor:
+    def _checked(self, idxs) -> np.ndarray:
         """Row indices checked on the host against the live rows (an index
         out of range on the device would fault the card, not raise)."""
         idxs = np.asarray(idxs, np.int64)
         if idxs.size and (idxs.min() < 0 or idxs.max() >= self._n):
             raise IndexError(f"row index out of range for {self._n} rows")
-        return torch.as_tensor(idxs, device=self.device)
-
-    def _reserve(self, n: int) -> None:
-        """Grow the store (doubling, capped at capacity) to hold n rows."""
-        if n > self._capacity:
-            raise ValueError(f"DescriptorDB capacity {self._capacity} exceeded")
-        if n <= self._fv.shape[0]:
-            return
-        rows = min(self._capacity, max(n, 2 * self._fv.shape[0], 16))
-        # a normal tensor also when the frame step grows it (under inference
-        # mode), so that rows can be written outside that mode too
-        with span("db.grow"), torch.inference_mode(False):
-            grown = torch.zeros((rows,) + self._fv.shape[1:], device=self.device)
-            grown[: self._n] = self._fv[: self._n]
-            self._fv = grown
-        count("db.grows")
-
-    def add(self, fv) -> int:
-        """Append one (W', C) or a batch (K, W', C) of embeddings; returns the
-        first new index."""
-        with span("db.insert"):
-            fv = self._tensor(fv)
-            if fv.dim() == 2:
-                fv = fv[None]
-            k = fv.shape[0]
-            self._reserve(self._n + k)
-            self._fv[self._n : self._n + k] = fv
-            first = self._n
-            self._n += k
-            return first
-
-    def load(self, fv) -> int:
-        """Replace the whole store with ``fv`` (N, W', C); returns N."""
-        fv = self._tensor(fv)
-        if fv.shape[0] > self._capacity:
-            raise ValueError(
-                f"bulk load of {fv.shape[0]} rows exceeds capacity "
-                f"{self._capacity}"
-            )
-        if fv.shape[1:] != self._fv.shape[1:]:
-            raise ValueError(
-                f"embedding shape {tuple(fv.shape[1:])} does not match the DB's "
-                f"(W', C) = {tuple(self._fv.shape[1:])} — was this cache built "
-                "with a different input_width/model?"
-            )
-        self._n = 0
-        self.add(fv)
-        return self._n
-
-    def save(self, path: str) -> None:
-        """Persist the live embeddings to ``path`` (.npz), the format the JAX
-        package's DescriptorDB writes and reads."""
-        np.savez_compressed(path, feature_volumes=self.feature_volumes)
-
-    def restore(self, path: str) -> int:
-        """Load embeddings saved by :meth:`save`; returns the row count."""
-        with np.load(path) as data:
-            return self.load(data["feature_volumes"])
+        return idxs
 
     @torch.inference_mode()
-    def _score(self, fa: torch.Tensor, fb: torch.Tensor):
-        """Heads on device tensors, in chunks of MAX_PAIRS_PER_CALL pairs;
-        returns host (overlap, yaw_peak, yaw_confidence)."""
-        scores = self._heads(fa.shape[0], lambda s: (fa[s], fb[s]))
-        with span("db.fetch"):
-            res = scores.cpu().numpy()
-        return res[0], res[1], res[2]
-
-    def score_volumes(self, fa, fb) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Score explicit (n, W', C) left/right feature-volume batches;
-        returns (overlap (n,), yaw_peak (n,) float sub-bin positions,
-        yaw_confidence (n,))."""
-        if len(fa) == 0:
-            return (np.zeros(0, np.float32),) * 3
-        return self._score(self._tensor(fa), self._tensor(fb))
-
     def score_pairs(self, idx1, idx2) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Score stored pairs; returns (overlap (n,), yaw_peak (n,) float
-        sub-bin positions, yaw_confidence (n,))."""
+        """Score stored pairs (left ``idx1``, right ``idx2``); returns
+        (overlap (n,), yaw_peak (n,) float sub-bin positions,
+        yaw_confidence (n,))."""
         if len(idx1) == 0:
             return (np.zeros(0, np.float32),) * 3
-        return self._score(self._fv[self._rows(idx1)], self._fv[self._rows(idx2)])
+        idx = self._upload(np.stack([self._checked(idx1), self._checked(idx2)]))
+        flat = self._fv[0]
+        scores = self._heads(len(idx1), lambda s: (flat.index_select(0, idx[0, s]),
+                                                   flat.index_select(0, idx[1, s])))
+        return tuple(self._fetch(scores))
 
     def query(self, query_fv, candidate_idxs) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Score one query embedding against stored candidates.
@@ -322,39 +398,17 @@ class DescriptorDB(_FrameStore):
         candidates are the *left* input and the query the *right*, matching
         reference infer.infer_multiple (infer.py:186-190).
         """
-        if len(candidate_idxs) == 0:
-            return (np.zeros(0, np.float32),) * 3
-        with span("db.gather"):
-            fa = self._fv[self._rows(candidate_idxs)]
-            q = self._tensor(query_fv)
-        return self._score(fa, q[None].expand_as(fa))
+        return tuple(self.query_rows(query_fv, self._checked(candidate_idxs)))
 
 
-class ShardedDescriptorDB(_FrameStore):
-    """Descriptor DB with rows interleaved over ``shards``: global row ``i``
-    lives in shard ``i % D`` at slot ``i // D``, so the live prefix of the
-    map is always balanced over the shards. Without a mesh all D shards are
-    one (D, slots, W', C) float32 tensor on ``device``; with a ``mesh`` of D
-    ranks (the JAX store sharded on the device axis) rank d holds only shard
-    d, a (1, slots, W', C) tensor on its device.
-
-    On a mesh every rank makes the same calls with the same arguments, as
-    the JAX package's processes do: an added row is kept by the rank that
-    owns it, each rank scores its own masked live rows and takes its best k,
-    and the ranks' best rows are gathered (an all-reduce into a zero-filled
-    buffer) and merged. Results equal the one-device store's with D shards,
-    up to the rounding of the heads on other batch sizes.
-
-    The store is allocated at capacity: growing it would move it under
-    frames that are still in flight.
+class ShardedDescriptorDB(_Store):
+    """The store with ``shards`` row-interleaved shards on one device, or
+    one on each rank of a ``mesh``, and the JAX package's
+    ``ShardedDescriptorDB`` queries: the best k rows reduced on the device.
 
     Queries take a GLOBAL-row candidate mask, (capacity,) bool or
-    (Q, capacity) per query. Only live masked rows are scored: the mask is
-    host data, so the candidate rows and their count are known without asking
-    the device. The rows are gathered on the device, scored in chunks of
-    MAX_PAIRS_PER_CALL against the ``expand``ed query, and reduced to the
-    best k there; results are what scoring every live row and masking the
-    rest to -1 would give.
+    (Q, capacity) per query; results are what scoring every live row and
+    masking the rest to -1 would give.
 
     Args:
       head_apply: (fa, fb) -> (overlap (B, 1), orientation logits (B, W')),
@@ -369,39 +423,6 @@ class ShardedDescriptorDB(_FrameStore):
       mesh: a ``parallel.mesh.Mesh`` whose ranks hold one shard each.
     """
 
-    def __init__(
-        self,
-        head_apply: Callable,
-        capacity: int = 8192,
-        width: int = 360,
-        channels: int = 128,
-        shards: int | None = None,
-        device=None,
-        mesh: Mesh | None = None,
-    ):
-        d = int((1 if mesh is None else mesh.size) if shards is None else shards)
-        if d < 1:
-            raise ValueError(f"shards must be >= 1, got {shards}")
-        if mesh is not None and d != mesh.size:
-            raise ValueError(f"{d} shards on a mesh of {mesh.size} ranks")
-        self._head = head_apply
-        self._mesh = mesh
-        self._n_dev = d
-        # the shards this process holds: all of them, or the rank's
-        self._first, n_local = (0, d) if mesh is None else (mesh.rank, 1)
-        self._slots_cap = (capacity + d - 1) // d
-        self._check_row_ids()
-        self.device = device_of(device, mesh)
-        self._fv = torch.zeros((n_local, self._slots_cap, width, channels), device=self.device)
-        self._n = 0
-
-    def __len__(self) -> int:
-        return self._n
-
-    @property
-    def capacity(self) -> int:
-        return self._n_dev * self._slots_cap
-
     def _slots_bucket(self, n: int) -> int:
         """Smallest power-of-two slot count covering n rows (>= 1 per shard)."""
         need = max(1, -(-n // self._n_dev))
@@ -409,85 +430,6 @@ class ShardedDescriptorDB(_FrameStore):
         while b < need:
             b *= 2
         return min(b, self._slots_cap)
-
-    def _flat(self, rows: np.ndarray) -> np.ndarray:
-        """Global rows held here -> row indices of this process's store
-        viewed as (local shards * slots, W', C)."""
-        return (rows % self._n_dev - self._first) * self._slots_cap + rows // self._n_dev
-
-    def _held(self, rows: np.ndarray) -> np.ndarray:
-        """The global ``rows`` this process holds."""
-        if self._mesh is None:
-            return rows
-        return rows[rows % self._n_dev == self._first]
-
-    def add(self, fv) -> int:
-        """Append one (W', C) or a batch (K, W', C) of embeddings; returns the
-        first new row."""
-        fv = torch.as_tensor(fv, dtype=torch.float32, device=self.device)
-        if fv.dim() == 2:
-            fv = fv[None]
-        k = fv.shape[0]
-        if self._n + k > self.capacity:
-            raise ValueError("ShardedDescriptorDB capacity exceeded")
-        if tuple(fv.shape[1:]) != tuple(self._fv.shape[2:]):
-            raise ValueError(
-                f"embedding shape {tuple(fv.shape[1:])} does not match the DB's "
-                f"(W', C) = {tuple(self._fv.shape[2:])} — was this cache built "
-                "with a different input_width/model?"
-            )
-        with span("db.insert"):
-            # each shard held here keeps its rows: every D-th, in slot order
-            for local in range(self._fv.shape[0]):
-                mine = slice((self._first + local - self._n) % self._n_dev, k, self._n_dev)
-                slot0 = (self._n + mine.start) // self._n_dev
-                self._fv[local, slot0 : slot0 + len(range(k)[mine])] = fv[mine]
-        first = self._n
-        self._n += k
-        return first
-
-    @property
-    def feature_volumes(self) -> np.ndarray:
-        """Live embeddings in global row order (copied to the host: O(n);
-        serving hot paths stay on the device via query_topk). On a mesh the
-        ranks' shards are gathered first: every rank must ask."""
-        slots = -(-self._n // self._n_dev)
-        shards = self._fv[:, :slots]
-        if self._mesh is not None:
-            shards = all_gather(self._mesh, shards[0])
-        live = shards.transpose(0, 1).reshape(-1, *self._fv.shape[2:])
-        return live[: self._n].cpu().numpy()
-
-    def load(self, fv) -> int:
-        """Replace the whole store with ``fv`` (N, W', C); returns N."""
-        if len(fv) > self.capacity:
-            raise ValueError(
-                f"bulk load of {len(fv)} rows exceeds capacity {self.capacity}"
-            )
-        self._n = 0
-        if len(fv):
-            self.add(fv)
-        return self._n
-
-    def save(self, path: str) -> None:
-        """Persist the live embeddings in global row order to ``path`` (.npz),
-        the format both DBs of the JAX package write and read. On a mesh
-        rank 0 writes and every rank returns once the file is there."""
-        save_npz(self._mesh, path, feature_volumes=self.feature_volumes)
-
-    def restore(self, path: str) -> int:
-        """Load embeddings saved by :meth:`save` (re-interleaved on insert;
-        on a mesh every rank reads the file and keeps its rows)."""
-        with np.load(path) as data:
-            return self.load(data["feature_volumes"])
-
-    # -- queries -------------------------------------------------------------
-
-    def _candidate_rows(self, candidate_mask) -> np.ndarray:
-        """The live masked rows held here, in store order: shard-major, which
-        is the order in which equal overlaps are ranked."""
-        rows = self._held(self._live_rows(candidate_mask))
-        return rows[np.argsort(self._flat(rows), kind="stable")]
 
     def _masks(self, candidate_mask, qn: int) -> list:
         """One mask (or None) per query from a shared or per-query mask."""
@@ -512,7 +454,7 @@ class ShardedDescriptorDB(_FrameStore):
         (overlaps, row_ids, yaw_peaks, yaw_confidences), each (Q, k) with k
         capped at the live slot bucket; slots holding no live masked row
         come back with overlap -1."""
-        queries = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        queries = self._tensor(queries)
         if queries.dim() == 2:
             queries = queries[None]
         k = min(k, self._n_dev * self._slots_bucket(self._n))
@@ -534,13 +476,11 @@ class ShardedDescriptorDB(_FrameStore):
         (k,)-sized arrays cross to the host. Returns (overlaps, row_ids,
         yaw_peaks, yaw_confidences); slots holding no live masked row come
         back with overlap -1 (ignore them when fewer than k rows score)."""
-        query_fv = torch.as_tensor(query_fv, dtype=torch.float32, device=self.device)
         vals, gid, yaw, conf = self.query_topk_batch(
-            query_fv[None], k=k, candidate_mask=candidate_mask
+            self._tensor(query_fv)[None], k=k, candidate_mask=candidate_mask
         )
         return vals[0], gid[0], yaw[0], conf[0]
 
-    @torch.inference_mode()
     def query_all(
         self, query_fv, candidate_mask=None
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -548,19 +488,8 @@ class ShardedDescriptorDB(_FrameStore):
         (overlaps, yaw_peaks, yaw_confidences), each (capacity,), indexed by
         global row; rows that were not scored hold overlap -1, peak 0 and
         confidence 0."""
-        query_fv = torch.as_tensor(query_fv, dtype=torch.float32, device=self.device)
-        rows = self._candidate_rows(candidate_mask)
-        scores, idx = self._score_rows(query_fv, rows)
-        if self._mesh is None:
-            scores = scores.cpu().numpy()
-        else:  # the ranks' (3, capacity) tables; each row read from its owner's
-            table = scores.new_zeros((3, self.capacity))
-            table[:, idx] = scores
-            tables = all_gather(self._mesh, table).cpu().numpy()
-            rows = self._live_rows(candidate_mask)
-            scores = tables[rows % self._n_dev, :, rows].T
-        overlap = np.full(self.capacity, -1.0, np.float32)
-        yaw = np.zeros(self.capacity, np.float32)
-        conf = np.zeros(self.capacity, np.float32)
-        overlap[rows], yaw[rows], conf[rows] = scores
-        return overlap, yaw, conf
+        rows = self._live_rows(candidate_mask)
+        out = np.zeros((3, self.capacity), np.float32)
+        out[0] = -1.0
+        out[:, rows] = self.query_rows(query_fv, rows)
+        return out[0], out[1], out[2]

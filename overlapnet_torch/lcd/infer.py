@@ -4,13 +4,13 @@ API-parity re-design of the reference ``Infer`` class (reference
 src/two_heads/infer.py:22-265): leg/head factorization with an incremental
 embedding cache, the three entry points (``infer_one``, ``infer_multiple``,
 ``infer_multiple_vs_multiple``), ``create_feature_volumes``, ``query_best``
-and ``dispatch_frame``. The embedding cache is a ``DescriptorDB`` on the
-serving device or, with ``shards``, a ``ShardedDescriptorDB`` (with ``mesh``
-one shard on each rank); on either, ``dispatch_frame`` is the store's fused
-frame step and does not wait for the device. Weights load from the
-flat-key .npz export (``weights.py``), a reference Keras HDF5 file
-(``train/import_keras.py``) or a checkpoint directory of this package's
-trainer (``train/checkpoint.py``).
+and ``dispatch_frame``. The embedding cache is a ``ShardedDescriptorDB``: one
+shard on the serving device by default, ``shards`` of them there, or one on
+each rank of a ``mesh``. ``dispatch_frame`` is the store's fused frame step
+and does not wait for the device; ``query_best`` is that step's result.
+Weights load from the flat-key .npz export (``weights.py``), a reference
+Keras HDF5 file (``train/import_keras.py``) or a checkpoint directory of
+this package's trainer (``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import torch
 from overlapnet_torch.core.config import OverlapNetConfig
 from overlapnet_torch.core.profiling import span
 from overlapnet_torch.data.dataset import assemble_scan_image
-from overlapnet_torch.lcd.descriptor_db import DescriptorDB, ShardedDescriptorDB
+from overlapnet_torch.lcd.descriptor_db import ShardedDescriptorDB
 from overlapnet_torch.models import build_model, leg_output_width
 from overlapnet_torch.ops.yaw import peak_to_degrees
 from overlapnet_torch.parallel.mesh import Mesh, device_of, save_npz
@@ -85,15 +85,13 @@ class Infer:
       db_capacity: maximum number of cached embeddings.
       device: where the model and the embedding cache live ("cuda" by
         default; raises if no card is visible); with a mesh, the rank's.
-      shards: None keeps the map in a ``DescriptorDB``, which grows as
-        frames come; a number keeps it in a ``ShardedDescriptorDB`` with that
-        many row-interleaved shards (all on ``device``), allocated at
-        capacity, which also reduces ``infer_multiple`` and ``query_best``
-        to the best k on the device. On both, ``dispatch_frame`` is the
-        fused frame step and does not wait for the device.
-      mesh: keeps the map in a ``ShardedDescriptorDB`` with one shard on
-        each rank of this ``parallel.mesh.Mesh`` (the JAX ``Infer(mesh=)``).
-        Every rank then makes the same calls; the model is replicated.
+      shards: the number of row-interleaved shards of the map store, all on
+        ``device`` (1 when None). The store grows as frames come, whatever
+        the number; the answers do not depend on it, save which of equal
+        overlaps wins (the first in store order, shard-major).
+      mesh: keeps one shard of the map on each rank of this
+        ``parallel.mesh.Mesh`` (the JAX ``Infer(mesh=)``). Every rank then
+        makes the same calls; the model is replicated.
     """
 
     def __init__(
@@ -106,23 +104,19 @@ class Infer:
         mesh: Mesh | None = None,
     ):
         if mesh is not None and shards is not None:
-            raise ValueError("shards= is the one-device store; a mesh sets its own")
+            raise ValueError("shards= lays the map out on one device; a mesh sets its own")
         self.cfg = cfg
         self.mesh = mesh
-        self.shards = shards if mesh is None else mesh.size
         self.device = device_of(device, mesh)
         self.output_size = leg_output_width(cfg.model)
         self.model = build_model(cfg.model, cfg.num_input_channels, device=self.device)
         self.model.load_state_dict(params if params is not None else self._load_params())
         self.model.eval()
-        store = dict(
-            capacity=db_capacity, width=self.output_size,
-            channels=self.model.legs.out_channels, device=self.device,
+        self._db = ShardedDescriptorDB(
+            self.model.score, capacity=db_capacity, width=self.output_size,
+            channels=self.model.legs.out_channels, shards=shards,
+            device=self.device, mesh=mesh,
         )
-        if self.shards is None:
-            self._db = DescriptorDB(self.model.score, **store)
-        else:
-            self._db = ShardedDescriptorDB(self.model.score, shards=shards, mesh=mesh, **store)
         self._db.set_embedder(self.model.encode)
         # frame-id -> db row; infer_multiple appends one embedding per call
         # so ids stay aligned like the reference's list (infer.py:184-185).
@@ -221,12 +215,6 @@ class Infer:
     def _rows_of(self, frame_ids: Sequence[int]) -> np.ndarray:
         return np.array([self._frame_rows[int(f)] for f in frame_ids], np.int64)
 
-    def _mask_of(self, rows: np.ndarray) -> np.ndarray:
-        """Global-row candidate mask of the store."""
-        mask = np.zeros(self._db.capacity, bool)
-        mask[rows] = True
-        return mask
-
     def infer_multiple(
         self, current_frame_id: int, reference_frame_id: Sequence[int], fv=None
     ):
@@ -237,24 +225,8 @@ class Infer:
         fv = self._embed_and_add(current_frame_id, fv)
         if len(reference_frame_id) == 0:
             return None
-        ref_rows = self._rows_of(reference_frame_id)
-        if self.shards is None:
-            overlaps, yaw_peaks, confs = self._db.query(fv, ref_rows)
-        else:
-            # top-k with k >= #candidates: every masked candidate comes back
-            # and only O(k) values cross to the host. Fillers (overlap -1)
-            # are dropped; a reference id given twice gets its score at both
-            # positions.
-            vals, gids, yaw_k, conf_k = self._db.query_topk(
-                fv, k=len(ref_rows), candidate_mask=self._mask_of(ref_rows)
-            )
-            overlaps = np.full(len(ref_rows), -1.0, np.float32)
-            yaw_peaks = np.zeros(len(ref_rows), np.float32)
-            confs = np.zeros(len(ref_rows), np.float32)
-            for v, g, y, c in zip(vals, gids, yaw_k, conf_k):
-                if v > -1.0:
-                    at = ref_rows == g
-                    overlaps[at], yaw_peaks[at], confs[at] = v, y, c
+        # a reference id given twice gets its score at both positions
+        overlaps, yaw_peaks, confs = self._db.query_rows(fv, self._rows_of(reference_frame_id))
         return overlaps, self._yaw_degrees(yaw_peaks), confs
 
     def query_best(
@@ -262,26 +234,9 @@ class Infer:
     ):
         """Embed + cache the current frame, then return the best candidate
         as (match_frame_id, overlap, yaw_deg, confidence), or None when
-        there are no candidates."""
-        fv = self._embed_and_add(current_frame_id, fv)
-        if len(candidate_frame_ids) == 0:
-            return None
-        rows = self._rows_of(candidate_frame_ids)
-        if self.shards is None:
-            overlaps, yaw_peaks, confs = self._db.query(fv, rows)
-            b = int(np.argmax(overlaps))
-            best_row = int(rows[b])
-        else:  # mask and argmax stay on the device: k = 1 values come back
-            overlaps, gids, yaw_peaks, confs = self._db.query_topk(
-                fv, k=1, candidate_mask=self._mask_of(rows)
-            )
-            b, best_row = 0, int(gids[0])
-        return (
-            self._row_frames[best_row],
-            float(overlaps[b]),
-            float(self._yaw_degrees(yaw_peaks[b])),
-            float(confs[b]),
-        )
+        there are no candidates: the frame step's result
+        (:meth:`dispatch_frame`), waited for."""
+        return self.dispatch_frame(current_frame_id, candidate_frame_ids, fv=fv).result
 
     def dispatch_frame(
         self, current_frame_id: int, candidate_frame_ids: Sequence[int],
@@ -294,16 +249,17 @@ class Infer:
         legs do not run.
 
         The returned :class:`PendingFrame` resolves on first access to
-        ``.result``, to what :meth:`query_best` gives (of equal overlaps, the
-        candidate first in the store's row order: the lowest row, on the
-        plain store and on one shard). Candidate gating depends only on
-        poses, not on earlier results, so consecutive frames can be
-        dispatched back to back and resolved later
+        ``.result``, to (match_frame_id, overlap, yaw_deg, confidence), or
+        None when there are no candidates; of equal overlaps, the candidate
+        first in the store's row order wins (the lowest row, on one shard).
+        Candidate gating depends only on poses, not on earlier results, so
+        consecutive frames can be dispatched back to back and resolved later
         (``lcd.online.OnlineLoopCloser.run``)."""
         with span("lcd.dispatch"):
             if image is None and fv is None:
                 image = self._load_image(str(current_frame_id).zfill(6))
-            mask = self._mask_of(self._rows_of(candidate_frame_ids))
+            mask = np.zeros(self._db.capacity, bool)
+            mask[self._rows_of(candidate_frame_ids)] = True
             row, (packed, event) = self._db.frame_step(image, mask, fv=fv)
             self._frame_rows[int(current_frame_id)] = row
             self._row_frames[row] = int(current_frame_id)

@@ -298,9 +298,7 @@ def run_lcd(cfg, params, poses: np.ndarray, gt_table: np.ndarray,
     gt_overlap[q, r] = gt_table[:, 2]
 
     covs = kitti.load_covariances(covariance_file) if covariance_file else None
-    # one shard: serving goes through the fused frame step (the product path
-    # cli lcd uses)
-    infer = Infer(cfg, params=params, db_capacity=max(16, n), device=device, shards=1)
+    infer = Infer(cfg, params=params, db_capacity=max(16, n), device=device)
     closer = OnlineLoopCloser(
         infer, poses, covariances=covs, overlap_threshold=overlap_threshold,
         inactive_time=min(100, n // 4), inactive_dist=50.0,

@@ -39,6 +39,7 @@ from overlapnet_tpu.models import make_head_apply
 from overlapnet_tpu.parallel.mesh import make_mesh
 from overlapnet_tpu.train.checkpoint import save_params_npz
 from overlapnet_torch.core import config as tconfig
+from overlapnet_torch.core import profiling
 from overlapnet_torch.geometry import kitti
 from overlapnet_torch.lcd import gating, online
 from overlapnet_torch.lcd.descriptor_db import ShardedDescriptorDB
@@ -219,7 +220,7 @@ def _assert_topk_equal(out_t, out_j):
 
 
 @pytest.mark.parametrize("shards,leg_padding", [
-    (1, "valid"), (2, "circular"), (8, "valid"),
+    (1, "valid"), (2, "circular"), (4, "valid"), (8, "valid"),
 ])
 def test_sharded_db_matches_jax(shards, leg_padding, tmp_path):
     jcfg = ModelConfig(input_width=360, leg_padding=leg_padding)
@@ -280,6 +281,26 @@ def test_sharded_db_matches_jax(shards, leg_padding, tmp_path):
         for qi in range(2):
             _assert_topk_equal([x[qi] for x in out_t], [x[qi] for x in out_j])
     assert np.all(out_t[0][1] == -1.0)  # the second query has no candidate
+
+    # frame steps grow the store past its first allocation (16 rows); the
+    # JAX store takes the same rows by add, then scores them the same way
+    first = np.zeros(21, bool)
+    first[[0, 2, 5, 9]] = True
+    grows = profiling.totals().get("db.grows", 0)
+    more = np.maximum(rng.normal(size=(7, w, 128)), 0).astype(np.float32)
+    for i, fv in enumerate(more):
+        row, (packed, _) = tdb.frame_step(None, first, fv=fv)
+        assert row == jdb.add(fv) == 11 + i
+        _assert_topk_equal([x[None] for x in packed.numpy()],
+                           jdb.query_topk(fv, k=1, candidate_mask=first))
+    assert profiling.totals()["db.grows"] > grows and len(tdb) == 18
+    np.testing.assert_array_equal(tdb.feature_volumes, np.concatenate([fvs, more]))
+    ov_t, yaw_t, _ = tdb.query_all(more[3], mask)
+    ov_j, yaw_j, _ = jdb.query_all(more[3], mask)
+    np.testing.assert_array_equal(np.flatnonzero(ov_t > -1.0), [0, 1, 3, 6, 10, 15])
+    np.testing.assert_allclose(ov_t, ov_j, atol=1e-5)
+    np.testing.assert_allclose(yaw_t[ov_j > -1.0], yaw_j[ov_j > -1.0], atol=1e-4)
+    _assert_topk_equal(tdb.query_topk(more[3], k=5), jdb.query_topk(more[3], k=5))
 
     # save / restore, both ways: each store takes 7 rows the other saved
     tdb.load(fvs[:7])
@@ -402,9 +423,18 @@ def test_infer_sharded_matches_jax_mesh(tree):
     assert np.all(out_t[0] > -1.0)
 
 
+def _sequential_best(infer, frame_id, cands, fv=None):
+    """Embed, then the argmax of infer_multiple over the candidates."""
+    out = infer.infer_multiple(frame_id, cands, fv=fv)
+    if out is None:
+        return None
+    b = int(np.argmax(out[0]))
+    return cands[b], float(out[0][b]), float(out[1][b]), float(out[2][b])
+
+
 def test_fused_frame_step_matches_sequential_path(tree):
-    """dispatch_frame on the sharded store (embed + insert + masked top-1)
-    == embed, then query_best on the plain store, frame for frame; and a
+    """dispatch_frame (embed + insert + masked top-1) on one shard and on 8
+    == embed, then the argmax of infer_multiple, frame for frame; and a
     frame dispatched with its image in hand == the frame read from disk."""
     _, tcfg = _cfgs(tree)
     fused = Infer(tcfg, db_capacity=32, device="cpu", shards=1)
@@ -415,7 +445,7 @@ def test_fused_frame_step_matches_sequential_path(tree):
         cands = _frame_candidates(i)
         pending.append((fused.dispatch_frame(i, cands),
                         handed.dispatch_frame(i, cands, image=seq._load_image(f"{i:06d}")),
-                        seq.query_best(i, cands)))
+                        _sequential_best(seq, i, cands)))
     for a, b, want in pending:
         _assert_same_result(a.result, want, tol=0.0)
         _assert_same_result(b.result, want, tol=0.0)
@@ -423,7 +453,8 @@ def test_fused_frame_step_matches_sequential_path(tree):
     np.testing.assert_array_equal(handed.feature_volumes, seq.feature_volumes)
     # with a precomputed embedding the same step runs without the legs
     done = fused.dispatch_frame(8, [0, 1], fv=seq.feature_volumes[3])
-    _assert_same_result(done.result, seq.query_best(8, [0, 1], fv=seq.feature_volumes[3]), tol=0.0)
+    _assert_same_result(done.result, _sequential_best(seq, 8, [0, 1], fv=seq.feature_volumes[3]),
+                        tol=0.0)
 
 
 def test_duplicate_reference_ids_each_get_their_score(tree):

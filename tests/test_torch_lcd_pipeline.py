@@ -1,8 +1,8 @@
-"""The plain store's fused frame step (``Infer()`` without ``shards``):
-``dispatch_frame`` against the synchronous ``query_best`` and against the
-sharded store with one shard, frame by frame; ``OnlineLoopCloser.run`` on
-the plain store against its ``step`` loop; on a card, the step comes back
-unresolved and waits for nothing. The 360-column geometry (W' = 90),
+"""The fused frame step of ``Infer()`` (one shard): ``dispatch_frame``
+against an independent answer, the argmax of ``infer_multiple`` over
+ascending candidates, and against ``Infer(shards=1)``, frame by frame;
+``OnlineLoopCloser.run`` against its ``step`` loop; on a card, the step
+comes back unresolved and waits for nothing. The 360-column geometry (W' = 90),
 seeded weights, float32 legs, the port alone (no JAX: the card's case runs
 where JAX does not)."""
 
@@ -59,6 +59,17 @@ def _candidates(i):
     return list(range(max(0, i - 7), max(0, i - 2)))
 
 
+def _best(infer, frame_id, cands, fv=None):
+    """The argmax of ``infer_multiple`` over ascending candidates (of equal
+    overlaps the first), as (match, overlap, yaw_deg, confidence), or None
+    without candidates: the frame step's answer, reached another way."""
+    out = infer.infer_multiple(frame_id, cands, fv=fv)
+    if out is None:
+        return None
+    b = int(np.argmax(out[0]))
+    return cands[b], float(out[0][b]), float(out[1][b]), float(out[2][b])
+
+
 def _same(got, want):
     if want is None:
         assert got is None
@@ -73,7 +84,7 @@ def test_plain_frame_step_matches_query_best_and_the_sharded_store(route, tmp_pa
     pending = []
     for i in range(2 * OUT):
         cands = _candidates(i)
-        pending.append((plain.dispatch_frame(i, cands), sync.query_best(i, cands),
+        pending.append((plain.dispatch_frame(i, cands), _best(sync, i, cands),
                         sharded.dispatch_frame(i, cands)))
     assert sum(want is not None for _, want, _ in pending) == 2 * OUT - 3
     for got, want, other in pending:
@@ -84,7 +95,7 @@ def test_plain_frame_step_matches_query_best_and_the_sharded_store(route, tmp_pa
     plain.save_cache(str(tmp_path / "cache.npz"))
     assert plain.restore_cache(str(tmp_path / "cache.npz")) == 2 * OUT
     fv = sync.feature_volumes[3]
-    _same(plain.query_best(2 * OUT, [1, 2], fv=fv), sync.query_best(2 * OUT, [1, 2], fv=fv))
+    _same(plain.query_best(2 * OUT, [1, 2], fv=fv), _best(sync, 2 * OUT, [1, 2], fv=fv))
 
 
 def test_equal_overlaps_go_to_the_lower_row_and_no_candidates_to_none(route):
@@ -93,7 +104,7 @@ def test_equal_overlaps_go_to_the_lower_row_and_no_candidates_to_none(route):
     of equal overlaps the lower row wins, as np.argmax over ascending
     candidates picks it; with no candidate the step offers overlap -1 and
     ``dispatch_frame`` resolves to None; a precomputed embedding runs the
-    step without the legs and gives what ``query_best`` gives."""
+    step without the legs and gives the argmax of ``infer_multiple``."""
     def head(fa, fb):
         return fa[:, 0, :1], torch.einsum("bwc,bvc->bw", fa, fb)
 
@@ -114,7 +125,7 @@ def test_equal_overlaps_go_to_the_lower_row_and_no_candidates_to_none(route):
         for f in range(3):
             infer.add_embedding(10 + f, stored[f])
         _same(infer.dispatch_frame(13, [12, 10], fv=stored[1]).result,
-              infer.query_best(14, [10, 12], fv=stored[1]))
+              _best(infer, 14, [10, 12], fv=stored[1]))
         assert infer.dispatch_frame(15, [], fv=stored[1]).result is None
         assert len(infer.feature_volumes) == 6
     with pytest.raises(ValueError, match="2\\*\\*24"):
@@ -143,14 +154,14 @@ def test_plain_frame_step_waits_for_nothing_on_the_card(route):
     """On a card the plain store's step returns before the device is done
     (an event, no value), with no copy to the host or wait on the way
     (``set_sync_debug_mode("error")`` raises at any), and resolves to what
-    the synchronous path gives."""
+    the argmax of the synchronous ``infer_multiple`` gives."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the step waits for nothing only there")
     plain, sync = _infer(route, device="cuda"), _infer(route, device="cuda")
     images = [plain._load_image(f"{i:06d}") for i in range(2 * OUT)]
     for i in range(2 * OUT - 1):  # the map, and the plans of the step's kernels
         plain.dispatch_frame(i, _candidates(i), image=images[i]).result
-        sync.query_best(i, _candidates(i))
+        sync.infer_multiple(i, _candidates(i))
     last = 2 * OUT - 1
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -159,4 +170,4 @@ def test_plain_frame_step_waits_for_nothing_on_the_card(route):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert pending._event is not None and not pending._done
-    _same(pending.result, sync.query_best(last, _candidates(last)))
+    _same(pending.result, _best(sync, last, _candidates(last)))

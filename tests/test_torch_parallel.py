@@ -406,9 +406,10 @@ def test_rank_sharded_frame_steps_match_the_jax_sharded_store(ranks):
 
 
 def test_infer_on_the_mesh_matches_the_one_device_store(ranks):
-    """Infer(mesh=) on 2 ranks: fused frames, query_best and infer_multiple
-    give what Infer(shards=2) gives on one device (matches equal; overlaps
-    and confidences 1e-6, yaw 1e-3 degrees)."""
+    """Infer(mesh=) on 2 ranks: fused frames, query_best, infer_multiple,
+    infer_one and infer_multiple_vs_multiple give what Infer(shards=2) gives
+    on one device (matches equal; overlaps and confidences 1e-6, yaw 1e-3
+    degrees)."""
     results, data, _ = ranks
     got = results[0]["infer/frames"]
     np.testing.assert_array_equal(results[1]["infer/frames"], got)

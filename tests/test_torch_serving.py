@@ -106,6 +106,24 @@ def test_infer_matches_jax_infer(tree, leg_dtype, gate):
     assert int(y_t[1]) == 0  # self-pair: zero shift
 
 
+@pytest.mark.parametrize("shards", [1, 2])
+def test_explicit_volume_entry_points_answer_on_every_store_layout(tree, shards):
+    """infer_one and infer_multiple_vs_multiple score explicit volumes, which
+    every store layout scores alike: Infer(shards=N) answers them as
+    Infer() does."""
+    _, tcfg = _cfgs(tree, leg_dtype="float32")
+    plain = Infer(tcfg, db_capacity=16, device="cpu")
+    sharded = Infer(tcfg, db_capacity=16, device="cpu", shards=shards)
+    names = ["000000", "000001", "000002.bin"]
+    for want, got in zip(
+        (plain.infer_one("000000.bin", "000003.bin"),
+         plain.infer_multiple_vs_multiple(names, [0, 1, 2], [2, 1, 1])),
+        (sharded.infer_one("000000.bin", "000003.bin"),
+         sharded.infer_multiple_vs_multiple(names, [0, 1, 2], [2, 1, 1]))):
+        for x, y in zip(got, want):
+            np.testing.assert_array_equal(x, y)
+
+
 def test_cache_round_trip_and_jax_compatibility(tree, tmp_path):
     jcfg, tcfg = _cfgs(tree, leg_dtype="float32")
     ti = Infer(tcfg, db_capacity=16, device="cpu")

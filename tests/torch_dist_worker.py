@@ -232,11 +232,16 @@ def infer_cfg(root: str) -> OverlapNetConfig:
 def infer_results(infer) -> np.ndarray:
     """Frames 0-4 through ``dispatch_frame`` (candidates: every frame two or
     more back), ``query_best`` and ``infer_multiple``, as rows [match,
-    overlap, yaw_deg, confidence] (NaN for no result)."""
+    overlap, yaw_deg, confidence] (NaN for no result); then ``infer_one``
+    and ``infer_multiple_vs_multiple``, as rows [-1, overlap, yaw_deg, 0]."""
     rows = [infer.dispatch_frame(i, list(range(i - 1))).result for i in range(N_SCANS)]
     rows.append(infer.query_best(5, [0, 2, 3], fv=infer.feature_volumes[1]))
     ov, yaw, conf = infer.infer_multiple(6, [4, 1, 3], fv=infer.feature_volumes[2])
     rows += [(r, o, y, c) for r, o, y, c in zip([4, 1, 3], ov, yaw, conf)]
+    ov, yaw = infer.infer_one("000000", "000003")
+    rows.append((-1, ov, yaw[0], 0))
+    ov, yaw = infer.infer_multiple_vs_multiple(["000001", "000002", "000004"], [0, 1], [2, 0])
+    rows += [(-1, o, y, 0) for o, y in zip(ov, yaw)]
     return np.array([[np.nan] * 4 if r is None else list(r) for r in rows], np.float64)
 
 
