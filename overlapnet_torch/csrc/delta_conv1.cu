@@ -29,8 +29,8 @@
 // The price is cancellation. The rounding is a few fp32 ulps of L and of
 // the min term, not of the output: L_a and L_b are summed in fp32 over
 // chunks of 32 and the chunks in fp64, the min term in the tensor cores'
-// fp32 accumulators (which drop low bits on every wgmma) and per-tap fp32
-// flushes. Against the output's norm the error grows with the pair's
+// fp32 accumulators (which drop low bits on every wgmma) and the per-tap fp32
+// sums. Against the output's norm the error grows with the pair's
 // cancellation ratio
 //   rho^2 = sum_f (rms_i L_a + rms_j L_b)^2 / sum_f mean_{i,j} (L_a[i] - L_b[j])^2,
 // the size of the sums over that of L_a - L_b = sum W (a - bb), which is
@@ -75,37 +75,41 @@
 // - split_weight_kernel_route: each pair's route from its L_a and L_b, one
 //   block a pair, fp64 sums in a fixed order (nothing when the flag is
 //   clear).
-// - delta_conv1_kernel, per block of BM = 256 consecutive (i, j) rows of one
-//   pair: one producer thread feeds the weight pieces by TMA (one 2D tensor
-//   map, 128-byte swizzle, 64 K x 3F per stage) into a ring of mbarriers;
-//   setmaxnreg moves registers to two consumer warpgroups of 128 rows (two
-//   m64 tiles) each, which issue wgmma.m64n64k16.f32.bf16.bf16 with A from
-//   registers into one accumulator per tile. The path sets the layout: bf16
-//   rows take half the room of fp32 ones, which leaves the exact path more
-//   stages of the ring. The left rows a[i] of the tile are staged once; each
-//   warpgroup stages the J right rows of each tap itself with cp.async into
-//   a double buffer behind its own barrier, so the two drift apart and one
-//   forms fragments while the other's wgmma run. Each chunk goes in units
-//   (two k16 steps on the exact path, one on the general) whose fragments
-//   are double-buffered: a unit's wgmma group stays in flight while the
-//   next unit's fragments form (wgmma.wait_group 1). The tensor cores' fp32
-//   accumulation drops low bits on every wgmma, so each tap sums in the
-//   accumulators and the tap sums add up in fp32 on the CUDA cores. The
-//   epilogue masks the rows past W'*J (the ragged last tile). Blocks share
-//   no sum: no atomics, the same bits every run.
-// What bounds it: at B = 256, W' = 360 the product kernel takes about 3.7 ms
-// against the 1.65 ms floor (PERF.md). Without any fragment or wgmma
-// (scripts/k1_probe.py, tma_only) the weight ring, the staged rows, the
-// per-tap flushes and the epilogue alone take about 2.1 ms, and the wgmma
-// add most of their own time on top: per tap the shared memory serves the
-// B operand (192 KB a block), the fragments' rows and the flush, about what
-// it can in the tensor cores' time. ptxas gives each thread 168 registers,
-// which rules out a second accumulator set and m64n192 (192 accumulators
-// for two tiles), and the kernel as it is spills a little (32 bytes of
-// stack, 52 bytes stored and 100 loaded a thread; its cost is not measured
-// apart). Weight multicast over clusters of blocks, persistent blocks and
-// flushes every second tap were tried and were slower (PERF.md). An
-// mbarrier wait that spins past SPIN_LIMIT traps instead of hanging.
+// - delta_conv1_kernel, per block of BM = 192 consecutive (i, j) rows of one
+//   pair: a producer thread feeds the weight pieces by TMA (one 2D tensor
+//   map, 128-byte swizzle, 64 K x 3F per stage) into a ring of mbarriers,
+//   and ahead of each tap copies the tap's J right rows (bulk copies) into
+//   the next of B_BUFS buffers that the whole block reads; setmaxnreg moves
+//   registers to three consumer warpgroups of one m64 tile each, which issue
+//   wgmma.m64n64k16.f32.bf16.bf16 with A from registers. The path sets the
+//   layout: bf16 rows take half the room of fp32 ones, and each path's ring
+//   takes as many stages, up to MAX_STAGES, as its layout leaves room for.
+//   The left rows a[i] of the block are staged once. Each chunk goes in
+//   units (two k16 steps on the exact path, one on the general) whose
+//   fragments are double-buffered: a unit's wgmma group stays in flight
+//   while the next unit's fragments form (wgmma.wait_group 1). The tensor cores' fp32 accumulation drops low
+//   bits on every wgmma, so each tap sums in the accumulators (reset by its
+//   first wgmma) and the tap sums add up in fp32 on the CUDA cores, tap 0
+//   first, into totals that a thread keeps in registers. Two accumulator
+//   sets alternate by tap: tap k+1's first unit goes into the other set
+//   before tap k's set is added to the totals, so the tensor pipe never
+//   drains at a tap's end and no accumulator in flight is read
+//   (wait_group 0 comes once, before the epilogue). The epilogue masks the
+//   rows past W'*J (the ragged last tile). Blocks share no sum: no atomics,
+//   the same bits every run.
+// What bounds it: at B = 256, W' = 360 the product kernel takes about
+// 3.0 ms on the exact path against the 1.65 ms floor (PERF.md). A
+// consumer thread holds 2 x 32 accumulators and 32 totals in its 160
+// registers (setmaxnreg 160 / 32 over a 512-thread block launched at 128),
+// and ptxas still spills a little around each tap's add; a fourth consumer
+// warpgroup (BM = 256) leaves 112 registers, and ptxas then serializes the
+// wgmma (C7512). A warpgroup's own work per unit (its fragments, the ring's
+// waits) sets the pace as much as the tensor cores do: fewer rows a
+// warpgroup is dearer per row, which is why the right rows are the
+// producer's work. A ring of 4 stages is faster than one of 6 or 8, for
+// which shared memory has room. Weight multicast over clusters of blocks, persistent
+// blocks and flushes every second tap were tried and were slower (PERF.md).
+// An mbarrier wait that spins past SPIN_LIMIT traps instead of hanging.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -114,13 +118,19 @@
 namespace {
 
 constexpr int F = 64;             // output features: the wgmma N
-constexpr int BM = 256;           // output rows ((i, j) pairs) per block
+constexpr int CONSUMER_WGS = 3;   // consumer warpgroups, one m64 tile each
+constexpr int BM = 64 * CONSUMER_WGS;  // output rows ((i, j) pairs) per block
 constexpr int KC = 64;            // K chunk: 64 channels of one tap, one 128-byte bf16 row
 constexpr int PIECES = 3;         // W = W1 + W2 + W3 in bf16
-constexpr int MAX_STAGES = 6;     // weight ring depth at most (what shared memory leaves)
-constexpr int CONSUMER_WGS = 2;   // consumer warpgroups, 128 rows each
+constexpr int MAX_STAGES = 4;     // weight ring depth at most (deeper rings measured slower)
+constexpr int B_BUFS = 4;         // buffers of a tap's right rows, shared by the block
 constexpr int CONSUMERS = 128 * CONSUMER_WGS;
 constexpr int THREADS = CONSUMERS + 128;  // + one producer warpgroup
+// Registers a thread: what the launch gives each of THREADS (whole units of
+// 8), then setmaxnreg hands the producer's surplus to the consumers.
+constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;
+constexpr int PRODUCER_REGS = 32;
+constexpr int CONSUMER_REGS = (THREADS * LAUNCH_REGS - 128 * PRODUCER_REGS) / CONSUMERS / 8 * 8;
 constexpr int PIECE_BYTES = F * KC * 2;   // 8 KB: F rows of 128 B
 constexpr int STAGE_BYTES = PIECES * PIECE_BYTES;
 constexpr int ROW_PAD = 16;       // staged-row pad (bytes): conflict-free 16 B loads
@@ -202,12 +212,18 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int sr
                : "memory");
 }
 
+// A bulk global -> shared copy of `bytes` (a multiple of 16) that completes
+// on the mbarrier at bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
-}
-// Named barrier 2 + wg over the 128 threads of consumer warpgroup wg.
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
 }
 
 // wgmma descriptor of a K-major tile written by TMA with the 128-byte
@@ -430,42 +446,30 @@ split_weight_kernel_route(const float* __restrict__ la, const float* __restrict_
 
 // What a consumer thread of delta_conv1_kernel works with.
 struct Consumer {
-  uint32_t ring, full, empty;
-  int stages, stride, channels, j_count, lane;
+  uint32_t ring, full, empty;  // the weight ring and its mbarriers
+  uint32_t b_full, b_empty;    // the right rows' buffers' mbarriers
+  int stages, stride, channels, lane;
   const uint8_t* a_s;   // the block's left rows
-  const uint8_t* b_wg;  // this warpgroup's two buffers of right rows
+  const uint8_t* b_s;   // the B_BUFS buffers of right rows
   int buf_bytes;        // one buffer
-  int a_off[4], b_off[4];  // byte offsets of this thread's four rows
-  float4* master;       // fp32 sum of the finished taps
+  int a_off[2], b_off[2];  // byte offsets of this thread's two rows
 };
 
-__device__ __forceinline__ void release(const Consumer& c, int q) {
-  if (c.lane == 0) mbar_arrive(c.empty + 8 * (q % c.stages));
+// Where a consumer is in the weight ring (stage s, its phase) and in the
+// right rows' buffers (buffer nb, its phase).
+struct Cursor {
+  int s, phase, nb, b_phase;
+};
+
+__device__ __forceinline__ void release(const Consumer& c, int s) {
+  if (c.lane == 0) mbar_arrive(c.empty + 8 * s);
 }
 
-// Adds the accumulators (one tap's sums) to the fp32 sum of the taps before;
-// after the last tap the total is left in acc.
-__device__ __forceinline__ void flush_tap(const Consumer& c, float (&acc)[2][32], bool first,
-                                          bool last) {
-  fence_regs(acc[0]);
-  fence_regs(acc[1]);
+// Adds a finished tap's sums to the fp32 totals of the taps before it.
+__device__ __forceinline__ void add_tap(float (&total)[32], float (&sums)[32]) {
+  fence_regs(sums);
 #pragma unroll
-  for (int t = 0; t < 2; ++t)
-#pragma unroll
-    for (int v = 0; v < 8; ++v) {
-      float4 m = make_float4(acc[t][4 * v], acc[t][4 * v + 1], acc[t][4 * v + 2],
-                             acc[t][4 * v + 3]);
-      if (!first) {
-        const float4 prev = c.master[(8 * t + v) * CONSUMERS];
-        m.x += prev.x, m.y += prev.y, m.z += prev.z, m.w += prev.w;
-      }
-      if (!last) {
-        c.master[(8 * t + v) * CONSUMERS] = m;
-      } else {
-        acc[t][4 * v] = m.x, acc[t][4 * v + 1] = m.y;
-        acc[t][4 * v + 2] = m.z, acc[t][4 * v + 3] = m.w;
-      }
-    }
+  for (int n = 0; n < 32; ++n) total[n] += sums[n];
 }
 
 // A unit of a 64-channel chunk: the fragments formed and the wgmma issued
@@ -479,27 +483,28 @@ struct Unit {
   static constexpr int WORDS = EXACT ? 4 : 6;    // (lo, hi) of 2 steps / of 3 pieces
 };
 
-// The A fragments of unit u of the chunk at channel c0 of the tap in b_k.
-// Exact: min of the bf16 rows, channels c0 + 16 tq + 8u .. + 7: words
-// 2 sl, 2 sl + 1 are the low and high k of step 2u + sl. General: |a - bb|
-// of the fp32 rows, channels c0 + 16 tq + 4u .. + 3, split in three: words
-// 2P, 2P + 1 the low and high k of piece P + 1.
+// The A fragments of unit u of the chunk at channel c0 of the tap in b_k,
+// for this thread's rows g and g + 8 of its warp's 16. Exact: min of the
+// bf16 rows, channels c0 + 16 tq + 8u .. + 7: words 2 sl, 2 sl + 1 are the
+// low and high k of step 2u + sl. General: |a - bb| of the fp32 rows,
+// channels c0 + 16 tq + 4u .. + 3, split in three: words 2P, 2P + 1 the low
+// and high k of piece P + 1.
 template <bool EXACT>
 __device__ __forceinline__ void form_unit(const Consumer& c, const uint8_t* b_k,
-                                          uint32_t (&fr)[4][Unit<EXACT>::WORDS], int c0, int u) {
+                                          uint32_t (&fr)[2][Unit<EXACT>::WORDS], int c0, int u) {
   const int tq = c.lane % 4;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int h = 0; h < 2; ++h) {
     if constexpr (EXACT) {
       const int byte = 2 * (c0 + 16 * tq + 8 * u);
-      const uint4 x = *reinterpret_cast<const uint4*>(c.a_s + c.a_off[r] + byte);
-      const uint4 y = *reinterpret_cast<const uint4*>(b_k + c.b_off[r] + byte);
-      fr[r][0] = bf16x2_min(x.x, y.x), fr[r][1] = bf16x2_min(x.y, y.y);
-      fr[r][2] = bf16x2_min(x.z, y.z), fr[r][3] = bf16x2_min(x.w, y.w);
+      const uint4 x = *reinterpret_cast<const uint4*>(c.a_s + c.a_off[h] + byte);
+      const uint4 y = *reinterpret_cast<const uint4*>(b_k + c.b_off[h] + byte);
+      fr[h][0] = bf16x2_min(x.x, y.x), fr[h][1] = bf16x2_min(x.y, y.y);
+      fr[h][2] = bf16x2_min(x.z, y.z), fr[h][3] = bf16x2_min(x.w, y.w);
     } else {
       const int byte = 4 * (c0 + 16 * tq + 4 * u);
-      const float4 x = *reinterpret_cast<const float4*>(c.a_s + c.a_off[r] + byte);
-      const float4 y = *reinterpret_cast<const float4*>(b_k + c.b_off[r] + byte);
+      const float4 x = *reinterpret_cast<const float4*>(c.a_s + c.a_off[h] + byte);
+      const float4 y = *reinterpret_cast<const float4*>(b_k + c.b_off[h] + byte);
       uint32_t p[4][3];
       split3(fabsf(x.x - y.x), p[0][0], p[0][1], p[0][2]);
       split3(fabsf(x.y - y.y), p[1][0], p[1][1], p[1][2]);
@@ -507,19 +512,19 @@ __device__ __forceinline__ void form_unit(const Consumer& c, const uint8_t* b_k,
       split3(fabsf(x.w - y.w), p[3][0], p[3][1], p[3][2]);
 #pragma unroll
       for (int P = 0; P < 3; ++P) {
-        fr[r][2 * P] = pack_hi(p[0][P], p[1][P]);
-        fr[r][2 * P + 1] = pack_hi(p[2][P], p[3][P]);
+        fr[h][2 * P] = pack_hi(p[0][P], p[1][P]);
+        fr[h][2 * P + 1] = pack_hi(p[2][P], p[3][P]);
       }
     }
   }
 }
 
-// The wgmma of unit u on the stage at w0, both tiles; `first` resets the
-// accumulators. Exact: A * W1, A * W2, A * W3. General: the six products
-// of order <= 2, A1W1, A1W2, A2W1, A1W3, A2W2, A3W1.
+// The wgmma of unit u on the stage at w0 into one accumulator set; `first`
+// resets it. Exact: A * W1, A * W2, A * W3. General: the six products of
+// order <= 2, A1W1, A1W2, A2W1, A1W3, A2W2, A3W1.
 template <bool EXACT>
-__device__ __forceinline__ void issue_unit(uint32_t (&fr)[4][Unit<EXACT>::WORDS],
-                                           float (&acc)[2][32], uint32_t w0, int u, bool first) {
+__device__ __forceinline__ void issue_unit(uint32_t (&fr)[2][Unit<EXACT>::WORDS],
+                                           float (&acc)[32], uint32_t w0, int u, bool first) {
   if constexpr (EXACT) {
 #pragma unroll
     for (int sl = 0; sl < 2; ++sl)
@@ -527,10 +532,8 @@ __device__ __forceinline__ void issue_unit(uint32_t (&fr)[4][Unit<EXACT>::WORDS]
       for (int p = 0; p < PIECES; ++p) {
         // k16 step 2u + sl: the B tile advances 32 bytes inside its 128-byte rows
         const uint64_t desc = kmajor_sw128_desc(w0 + p * PIECE_BYTES + 32 * (2 * u + sl));
-#pragma unroll
-        for (int t = 0; t < 2; ++t)
-          wgmma_bf16(acc[t], fr[2 * t][2 * sl], fr[2 * t + 1][2 * sl], fr[2 * t][2 * sl + 1],
-                     fr[2 * t + 1][2 * sl + 1], desc, !first || sl > 0 || p > 0);
+        wgmma_bf16(acc, fr[0][2 * sl], fr[1][2 * sl], fr[0][2 * sl + 1], fr[1][2 * sl + 1],
+                   desc, !first || sl > 0 || p > 0);
       }
   } else {
     constexpr int A_PIECE[6] = {0, 0, 1, 0, 1, 2}, W_PIECE[6] = {0, 1, 0, 2, 1, 0};
@@ -538,64 +541,75 @@ __device__ __forceinline__ void issue_unit(uint32_t (&fr)[4][Unit<EXACT>::WORDS]
     for (int n = 0; n < 6; ++n) {
       const uint64_t desc = kmajor_sw128_desc(w0 + W_PIECE[n] * PIECE_BYTES + 32 * u);
       const int P = A_PIECE[n];
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-        wgmma_bf16(acc[t], fr[2 * t][2 * P], fr[2 * t + 1][2 * P], fr[2 * t][2 * P + 1],
-                   fr[2 * t + 1][2 * P + 1], desc, !first || n > 0);
+      wgmma_bf16(acc, fr[0][2 * P], fr[1][2 * P], fr[0][2 * P + 1], fr[1][2 * P + 1], desc,
+                 !first || n > 0);
     }
   }
 }
 
-// The consumers' taps, each staged, through the wgmma and flushed; the
-// block's sums are left in acc.
+// Tap k through the wgmma into the accumulator set `cur` (its first wgmma
+// resets it). Once this tap's first unit is in flight, the set `prev` (the
+// tap before, done by then) is added to the totals: the tensor pipe never
+// drains at a tap's end, and no accumulator in flight is read.
 template <bool EXACT>
-__device__ __forceinline__ void run_taps(const Consumer& c, float (&acc)[2][32],
-                                         const uint8_t* b_src, int row_bytes) {
+__device__ __forceinline__ void run_tap(const Consumer& c, int k, float (&cur)[32],
+                                        float (&prev)[32], float (&total)[32],
+                                        uint32_t (&fr)[2][2][Unit<EXACT>::WORDS], Cursor& r) {
   using U = Unit<EXACT>;
-  const int tid = threadIdx.x, wg = tid / 128;
-  const int vecs = row_bytes / 16;
-  auto stage_b = [&](int k) {  // the J rows of tap k
-    const uint8_t* dst = c.b_wg + (k & 1) * c.buf_bytes;
-    for (int e = tid % 128; e < c.j_count * vecs; e += 128) {
-      const int j = e / vecs, v = e % vecs;
-      cp_async16(smem_u32(dst + j * (row_bytes + ROW_PAD) + 16 * v),
-                 b_src + (long long)(c.stride * j + k) * row_bytes + 16 * v, 16);
-    }
-    asm volatile("cp.async.commit_group;" ::: "memory");
-  };
-  stage_b(0);
-  asm volatile("cp.async.wait_all;" ::: "memory");
-  consumers_sync();  // every a row is in
+  mbar_wait(c.b_full + 8 * r.nb, r.b_phase);  // this tap's right rows
+  const uint8_t* b_k = c.b_s + r.nb * c.buf_bytes;
   const int n_cc = c.channels / KC;
-  uint32_t fr[2][4][U::WORDS];
-  int q = 0;
-  for (int k = 0; k < c.stride; ++k) {
-    // this tap's rows have landed and every consumer is done with the last
-    asm volatile("cp.async.wait_all;" ::: "memory");
-    warpgroup_sync(wg);
-    if (k + 1 < c.stride) stage_b(k + 1);
-    const uint8_t* b_k = c.b_wg + (k & 1) * c.buf_bytes;
-    for (int cc = 0; cc < n_cc; ++cc, ++q) {
-      const int s = q % c.stages;
-      const uint32_t w0 = c.ring + s * STAGE_BYTES;
+  for (int cc = 0; cc < n_cc; ++cc) {
+    const uint32_t w0 = c.ring + r.s * STAGE_BYTES;
 #pragma unroll
-      for (int u = 0; u < U::COUNT; ++u) {
-        form_unit<EXACT>(c, b_k, fr[u % 2], cc * KC, u);
-        if (u == 0) mbar_wait(c.full + 8 * s, (q / c.stages) & 1);
-        wgmma_fence();
-        issue_unit<EXACT>(fr[u % 2], acc, w0, u, cc == 0 && u == 0);
-        wgmma_commit();
-        // the unit before is done: its fragments, and at u = 0 the chunk
-        // before and so its stage
-        wgmma_wait<1>();
-        if (u == 0 && cc > 0) release(c, q - 1);
+    for (int u = 0; u < U::COUNT; ++u) {
+      form_unit<EXACT>(c, b_k, fr[u % 2], cc * KC, u);
+      if (u == 0) mbar_wait(c.full + 8 * r.s, r.phase);
+      wgmma_fence();
+      issue_unit<EXACT>(fr[u % 2], cur, w0, u, cc == 0 && u == 0);
+      wgmma_commit();
+      // the unit before is done: its fragments, and at u = 0 the chunk
+      // before and so its stage, and at cc = 0 the tap before, its sums
+      // and the right rows its fragments were formed from
+      wgmma_wait<1>();
+      if (u == 0 && (k > 0 || cc > 0)) release(c, r.s == 0 ? c.stages - 1 : r.s - 1);
+      if (u == 0 && cc == 0) {
+        if (k > 0 && c.lane == 0) mbar_arrive(c.b_empty + 8 * ((r.nb + B_BUFS - 1) % B_BUFS));
+        add_tap(total, prev);
       }
     }
-    // each tap sums in the accumulators (reset by its first wgmma); the tap
-    // sums add up here in fp32, kept in shared memory (see the note)
-    wgmma_wait<0>();
-    release(c, q - 1);
-    flush_tap(c, acc, k == 0, k + 1 == c.stride);
+    if (++r.s == c.stages) r.s = 0, r.phase ^= 1;
+  }
+  if (++r.nb == B_BUFS) r.nb = 0, r.b_phase ^= 1;
+}
+
+// The consumers' taps, the sets alternating; the block's sums are left in
+// total. The taps add up in order, tap 0 first.
+template <bool EXACT>
+__device__ __forceinline__ void run_taps(const Consumer& c, float (&total)[32]) {
+  using U = Unit<EXACT>;
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  consumers_sync();  // every a row is in
+  // -0 adds as nothing (-0 + x == x, -0 included), so tap 0 adds the set
+  // acc[1] holds before any tap and the totals start from it
+  float acc[2][32];
+#pragma unroll
+  for (int n = 0; n < 32; ++n) acc[0][n] = 0.f, acc[1][n] = -0.f, total[n] = -0.f;
+  uint32_t fr[2][2][U::WORDS];
+  Cursor r = {0, 0, 0, 0};
+  for (int k = 0;; k += 2) {
+    run_tap<EXACT>(c, k, acc[0], acc[1], total, fr, r);
+    if (k + 1 == c.stride) {
+      wgmma_wait<0>();
+      add_tap(total, acc[0]);
+      break;
+    }
+    run_tap<EXACT>(c, k + 1, acc[1], acc[0], total, fr, r);
+    if (k + 2 == c.stride) {
+      wgmma_wait<0>();
+      add_tap(total, acc[1]);
+      break;
+    }
   }
 }
 
@@ -617,37 +631,62 @@ delta_conv1_kernel(const __grid_constant__ CUtensorMap wmap, const float* __rest
   const bool exact = call_exact && route[blockIdx.y] != 0;
   const int stages = exact ? stages_exact : stages_general;
   const int slot = (exact ? 2 : 4) * channels + ROW_PAD;  // a staged row
+  // The exact path stages the pre-pass's bf16 copies, the general one fp32.
+  const int row_bytes = slot - ROW_PAD;
+  const int buf_bytes = j_count * slot;
   // [stages][W1 | W2 | W3 tiles], 1024-aligned for the swizzle; then
-  // full[MAX_STAGES], empty[MAX_STAGES] mbarriers; a rows; per consumer
-  // warpgroup two buffers of bb rows; the fp32 tap sums.
+  // full[MAX_STAGES], empty[MAX_STAGES], b_full[B_BUFS], b_empty[B_BUFS]
+  // mbarriers; a rows; B_BUFS buffers of the J right rows of a tap.
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t ring = smem_u32(base);
   const uint32_t full = ring + stages * STAGE_BYTES;
   const uint32_t empty = full + 8 * MAX_STAGES;
-  uint8_t* a_s = base + stages * STAGE_BYTES + 16 * MAX_STAGES;
+  const uint32_t b_full = empty + 8 * MAX_STAGES;
+  const uint32_t b_empty = b_full + 8 * B_BUFS;
+  uint8_t* a_s = base + stages * STAGE_BYTES + 16 * (MAX_STAGES + B_BUFS);
   uint8_t* b_s = a_s + rows_a * slot;
 
   const int tid = threadIdx.x;
-  const int n_chunks = stride * (channels / KC);
+  const int batch = blockIdx.y;
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, CONSUMERS / 32);  // one arrival per consumer warp
     }
+    for (int nb = 0; nb < B_BUFS; ++nb) {
+      mbar_init(b_full + 8 * nb, 1);
+      mbar_init(b_empty + 8 * nb, CONSUMERS / 32);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
   if (tid >= CONSUMERS) {
-    // Producer warpgroup: one thread keeps the weight ring full.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    // Producer warpgroup: one thread keeps the weight ring full and, ahead
+    // of each tap's first chunk, copies the tap's J right rows into the
+    // next of the B_BUFS buffers.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
     if (tid == CONSUMERS) {
-      for (int q = 0; q < n_chunks; ++q) {
-        const int s = q % stages;
-        mbar_wait(empty + 8 * s, ((q / stages) & 1) ^ 1);
-        mbar_expect_tx(full + 8 * s, STAGE_BYTES);
-        tma_load_2d(ring + s * STAGE_BYTES, &wmap, full + 8 * s, q * KC, 0);
+      const uint8_t* b_src =
+          exact ? reinterpret_cast<const uint8_t*>(b16 + batch * b_bstride)
+                : reinterpret_cast<const uint8_t*>(bb + batch * b_bstride);
+      const int n_cc = channels / KC;
+      int s = 0, phase = 0, nb = 0, b_phase = 0;
+      for (int k = 0; k < stride; ++k) {
+        mbar_wait(b_empty + 8 * nb, b_phase ^ 1);
+        mbar_expect_tx(b_full + 8 * nb, j_count * row_bytes);
+        const uint32_t dst = smem_u32(b_s) + nb * buf_bytes;
+        for (int j = 0; j < j_count; ++j)
+          bulk_load(dst + j * slot, b_src + (long long)(stride * j + k) * row_bytes, row_bytes,
+                    b_full + 8 * nb);
+        if (++nb == B_BUFS) nb = 0, b_phase ^= 1;
+        for (int cc = 0; cc < n_cc; ++cc) {
+          mbar_wait(empty + 8 * s, phase ^ 1);
+          mbar_expect_tx(full + 8 * s, STAGE_BYTES);
+          tma_load_2d(ring + s * STAGE_BYTES, &wmap, full + 8 * s, (k * n_cc + cc) * KC, 0);
+          if (++s == stages) s = 0, phase ^= 1;
+        }
       }
       // the call counts as exact when every pair took the exact path
       if (tally != nullptr && call_exact && blockIdx.x == 0 && blockIdx.y == 0) {
@@ -657,39 +696,31 @@ delta_conv1_kernel(const __grid_constant__ CUtensorMap wmap, const float* __rest
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
-    const int batch = blockIdx.y;
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
     const int m_total = width * j_count;
     const int m0 = blockIdx.x * BM;
     const int i_lo = m0 / j_count;
     const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
     const int g = lane / 4, tq = lane % 4;
-    // the exact path stages the pre-pass's bf16 copies, the general one fp32
-    const int row_bytes = slot - ROW_PAD, pitch = slot;
+    const int pitch = slot;
     const uint8_t* a_src =
         exact ? reinterpret_cast<const uint8_t*>(a16 + batch * a_bstride)
               : reinterpret_cast<const uint8_t*>(a + batch * a_bstride);
-    const uint8_t* b_src =
-        exact ? reinterpret_cast<const uint8_t*>(b16 + batch * b_bstride)
-              : reinterpret_cast<const uint8_t*>(bb + batch * b_bstride);
 
     Consumer c;
-    c.ring = ring, c.full = full, c.empty = empty;
-    c.stages = stages, c.stride = stride, c.channels = channels, c.j_count = j_count;
-    c.lane = lane;
+    c.ring = ring, c.full = full, c.empty = empty, c.b_full = b_full, c.b_empty = b_empty;
+    c.stages = stages, c.stride = stride, c.channels = channels, c.lane = lane;
     c.a_s = a_s;
-    c.buf_bytes = j_count * pitch;
-    c.b_wg = b_s + 2 * wg * j_count * slot;
-    // fp32 sum of the finished taps, [8 float4 of tile 0, 8 of tile 1][thread]
-    c.master = reinterpret_cast<float4*>(b_s + 2 * CONSUMER_WGS * j_count * slot) + tid;
-    // This thread's four rows: slot r = 2 t + h is row 16 warp + g + 8 h of
-    // the warpgroup's m64 tile t.
+    c.b_s = b_s;
+    c.buf_bytes = buf_bytes;
+    // This thread's two rows: h = 0, 1 is row 16 warp + g + 8 h of the
+    // warpgroup's m64 tile.
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int m = m0 + wg * 128 + (r / 2) * 64 + warp * 16 + (r % 2) * 8 + g;
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wg * 64 + warp * 16 + h * 8 + g;
       const bool ok = m < m_total;
-      c.a_off[r] = ok ? (m / j_count - i_lo) * pitch : 0;
-      c.b_off[r] = ok ? (m % j_count) * pitch : 0;
+      c.a_off[h] = ok ? (m / j_count - i_lo) * pitch : 0;
+      c.b_off[h] = ok ? (m % j_count) * pitch : 0;
     }
 
     const int vecs = row_bytes / 16;  // 16-byte pieces per row
@@ -700,21 +731,15 @@ delta_conv1_kernel(const __grid_constant__ CUtensorMap wmap, const float* __rest
                  i < width ? 16 : 0);
     }
 
-    // Each tap's first wgmma overwrites acc; it starts at zero so that no
-    // wgmma operand is ever read uninitialized.
-    float acc[2][32];
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int n = 0; n < 32; ++n) acc[t][n] = 0.f;
+    float total[32];
     if (exact)
-      run_taps<true>(c, acc, b_src, row_bytes);
+      run_taps<true>(c, total);
     else
-      run_taps<false>(c, acc, b_src, row_bytes);
+      run_taps<false>(c, total);
 
-    // Epilogue: accumulator n of tile t holds row 16 warp + g + 8 ((n / 2) % 2),
-    // column 8 (n / 4) + 2 tq + n % 2; out = L_a + L_b + bias - 2 acc on the
-    // exact path, acc + bias on the general one.
+    // Epilogue: total n holds row 16 warp + g + 8 ((n / 2) % 2), column
+    // 8 (n / 4) + 2 tq + n % 2; out = L_a + L_b + bias - 2 total on the
+    // exact path, total + bias on the general one.
     const float* la_b = la + (a_bstride ? (long long)batch * width * F : 0) + 2 * tq;
     const float* lb_b = lb + (b_bstride ? (long long)batch * j_count * F : 0) + 2 * tq;
     float bv[16];
@@ -722,16 +747,15 @@ delta_conv1_kernel(const __grid_constant__ CUtensorMap wmap, const float* __rest
     for (int n = 0; n < 16; ++n)
       bv[n] = bias != nullptr ? bias[8 * (n / 2) + 2 * tq + n % 2] : 0.f;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int t = r / 2, h = r % 2;
-      const int m = m0 + wg * 128 + t * 64 + warp * 16 + h * 8 + g;
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wg * 64 + warp * 16 + h * 8 + g;
       if (m < m_total) {
         const float* lar = la_b + (long long)(m / j_count) * F;
         const float* lbr = lb_b + (long long)(m % j_count) * F;
         float* row = out + ((long long)batch * m_total + m) * F + 2 * tq;
 #pragma unroll
         for (int nb = 0; nb < F / 8; ++nb) {
-          const float s0 = acc[t][4 * nb + 2 * h], s1 = acc[t][4 * nb + 2 * h + 1];
+          const float s0 = total[4 * nb + 2 * h], s1 = total[4 * nb + 2 * h + 1];
           float2 v = make_float2(s0 + bv[2 * nb], s1 + bv[2 * nb + 1]);
           if (exact) {
             const float2 x = *reinterpret_cast<const float2*>(lar + 8 * nb);
@@ -833,9 +857,8 @@ extern "C" int delta_conv1_forward(const float* a, const float* bb, const float*
   const int a_batches = a_bstride ? batch : 1, b_batches = b_bstride ? batch : 1;
   // each path's layout (bf16 or fp32 rows) with as many weight stages as fit
   auto smem_for = [&](int stages, int elem) {
-    return 1024 + (size_t)stages * STAGE_BYTES + 16 * MAX_STAGES +
-           (size_t)(rows_a + 2 * CONSUMER_WGS * j_count) * (elem * channels + ROW_PAD) +
-           sizeof(float) * CONSUMERS * 2 * 32;  // the fp32 tap sums
+    return 1024 + (size_t)stages * STAGE_BYTES + 16 * (MAX_STAGES + B_BUFS) +
+           (size_t)(rows_a + B_BUFS * j_count) * (elem * channels + ROW_PAD);
   };
   auto stages_for = [&](int elem) {
     int n = MAX_STAGES;
@@ -847,6 +870,14 @@ extern "C" int delta_conv1_forward(const float* a, const float* bb, const float*
                           ? smem_for(stages_general, 4)
                           : smem_for(stages_exact, 2);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  // setmaxnreg.inc waits for registers the launch did not give: a build
+  // whose kernel has fewer than LAUNCH_REGS a thread is refused
+  static const bool regs_ok = [] {
+    cudaFuncAttributes attr;
+    return cudaFuncGetAttributes(&attr, delta_conv1_kernel) == cudaSuccess &&
+           attr.numRegs >= LAUNCH_REGS;
+  }();
+  if (!regs_ok) return (int)cudaErrorInvalidDeviceFunction;
 
   const Scratch sc(batch, width, channels, stride, a_batches, b_batches);
   uint8_t* base = static_cast<uint8_t*>(scratch);

@@ -3,20 +3,26 @@
 K1's plain version is held to the JAX Pallas kernel (run in interpret mode,
 as tests/test_ops.py runs it) and the correlation / yaw ops to their JAX
 counterparts. Tolerances: rtol/atol 1e-4 for fp32 sums that differ only in
-order; atol 1e-4 on correlation logits of scale 1 with exact argmax.
+order; atol 1e-4 on correlation logits of scale 1 with exact argmax. The
+tests marked ``card`` run K1 itself and skip without a card.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
-from overlapnet_tpu.core.config import ModelConfig as JaxModelConfig
-from overlapnet_tpu.ops import correlation as jcorr
-from overlapnet_tpu.ops import delta as jdelta
-from overlapnet_tpu.ops import yaw as jyaw
-from overlapnet_tpu.ops.pallas_delta import delta_conv1_pallas
+try:  # the reference; a machine with the card has no JAX and runs only the
+    # `card` tests of this file there (`-m card --noconftest`)
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from overlapnet_tpu.core.config import ModelConfig as JaxModelConfig
+    from overlapnet_tpu.ops import correlation as jcorr
+    from overlapnet_tpu.ops import delta as jdelta
+    from overlapnet_tpu.ops import yaw as jyaw
+    from overlapnet_tpu.ops.pallas_delta import delta_conv1_pallas
+except ModuleNotFoundError:
+    pass
 from overlapnet_torch.core import profiling
 from overlapnet_torch.core.config import ModelConfig
 from overlapnet_torch.kernels import delta_conv1 as k1
@@ -624,3 +630,62 @@ def test_k2_grouping_matches_the_ungrouped_backward(w, s, c, groups):
                                      need_volumes=False)
     assert da is None and db is None and calls == groups
     np.testing.assert_allclose(dw.numpy(), want[2].numpy(), rtol=1e-10, atol=1e-10)
+
+
+# -- on a card -------------------------------------------------------------------
+
+# K1's gate on each pair against the plain version in float64 (relative norm
+# of the difference): the benchmark's k1_err limit, and chip_smoke.py's
+K1_CARD_PAIR_LIMIT = 1e-5
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K1 runs only there")
+    return torch.device("cuda")
+
+
+def _card_volumes(w, path, dev):
+    """256 pairs of ReLU'd normal volumes at leg-feature scale, glorot-scale
+    weights and a bias, on the card; bf16 values for K1's exact path,
+    float32 for its general one."""
+    rng = np.random.default_rng(18 + w)
+    bsz, s, c, f = 256, 15, 128, 64
+    a, b = (torch.from_numpy(np.maximum(rng.normal(size=(bsz, w, c)), 0).astype(np.float32))
+            for _ in range(2))
+    if path == "exact":
+        a, b = a.bfloat16().float(), b.bfloat16().float()
+    limit = np.sqrt(6.0 / (s * c + s * f))
+    kernel = torch.from_numpy(rng.uniform(-limit, limit, size=(s, c, f)).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=(f,)).astype(np.float32) * 0.1)
+    return a.to(dev), b.to(dev), kernel.to(dev), bias.to(dev)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("bsz", [1, 32, 256])
+@pytest.mark.parametrize("w", [360, 450])
+@pytest.mark.parametrize("path", ["exact", "general"])
+def test_k1_on_the_card_is_within_its_bound_and_keeps_its_bits(path, w, bsz):
+    """K1 on the first ``bsz`` of 256 pairs, on the path the volumes choose:
+    each pair within K1_CARD_PAIR_LIMIT of the float64 plain version, two
+    calls with equal bits, and each pair's bits the same alone, in the
+    batch and in the 256-pair call."""
+    dev = _card()
+    s = 15
+    a, b, kernel, bias = _card_volumes(w, path, dev)
+    assert k1.exact_pairs(a[:bsz], b[:bsz], kernel, s).tolist() == [path == "exact"] * bsz
+    out = k1.delta_conv1(a[:bsz], b[:bsz], kernel, bias, stride=s)
+    assert torch.equal(out, k1.delta_conv1(a[:bsz], b[:bsz], kernel, bias, stride=s))
+    whole = k1.delta_conv1(a, b, kernel, bias, stride=s)
+    assert torch.equal(out, whole[:bsz])
+    for p in (0, bsz - 1):
+        alone = k1.delta_conv1(a[p:p + 1], b[p:p + 1], kernel, bias, stride=s)
+        assert torch.equal(alone, whole[p:p + 1]), p
+
+    idx = torch.from_numpy(np.unique(np.linspace(0, bsz - 1, min(bsz, 8)).round().astype(int)))
+    sel = idx.to(dev)
+    want = tdelta.delta_conv1(a[sel].double(), b[sel].double(), kernel.double(),
+                              bias.double(), stride=s)
+    d = out[sel].double() - want
+    pair = d.flatten(1).norm(dim=1) / want.flatten(1).norm(dim=1)
+    assert float(pair.max()) < K1_CARD_PAIR_LIMIT, pair.tolist()
