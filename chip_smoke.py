@@ -56,15 +56,37 @@ Phases, each printing one JSON line:
    K3's and the library's device time alone (``device_ms``, their launches
    replayed from a CUDA graph: no host time) beside them. The phase leaves
    cuDNN's TF32 switch as it found it.
+3b. conv3 (run after conv2): K4, c_conv3 with its bias and ReLU and the
+   overlap dense (TF32 on the tensor cores, both operands rounded to
+   nearest, fp32 sums; the sum, the dense's bias and the sigmoid in a second
+   small kernel), against its plain PyTorch version in float64 on K3-shaped
+   (B, J, J, 128) channels-last inputs: J = 24 (W' = 360) and 30 (W' = 450)
+   at B = 256, 32 and 1, J = 24 at B = 3 and 17, and J = 6 (W' = 90) at
+   B = 5. Gates on each pair's overlap: within 2e-5 of the float64 version
+   on the operands rounded to TF32 to nearest, as K4 rounds them (what is
+   left is its fp32 sums; bfloat16 operands, checked at B >= 32, read more),
+   and within 5e-4 of the float64 version on the operands as given; two
+   calls give the same bits; the result is (B, 1) float32;
+   ``k4.launches`` rises once a call; K4 on the first b pairs of a 256-pair
+   input equals those rows of the whole call for every b from 1 to 256;
+   with cuDNN's TF32 off (3xTF32) each overlap within 2e-5 of float64 and
+   two calls with the same bits. Timed at B = 256, 32 and 1 at W' = 360 and
+   450, in both forms, by CUDA events and by CUDA-graph replay
+   (``device_ms``), beside the bound (operations at the TF32 rate against
+   bytes), the plain version (TF32 off) and the library calls the head ran
+   before K4 (cuDNN's TF32 conv with its bias, the ReLU, the flatten, the
+   dense and the sigmoid; never called by the port). The phase leaves
+   cuDNN's TF32 switch as it found it.
 4. model: the default 64x900x4 model (bf16 legs, W' = 360), seeded weights,
    served through ``Infer(device="cuda")``: infer_one, infer_multiple of one
    query against 64 references, query_best and infer_multiple_vs_multiple.
-   K1's and K3's launch counts must rise; overlaps must be finite in [0, 1] and agree
-   with the same ``Infer`` on the CPU (|d| < 5e-3 with bf16 legs, < 1e-3 with
-   fp32 legs); a self-pair's yaw must be 0; a profiled head call at B = 256
-   holds no cuDNN ``convertTensor`` row (K3 reads K1's output as it lies).
-   Head pairs/s at B = 256, K1's and K3's ms in that call and leg scans/s
-   are printed as information.
+   K1's, K3's and K4's launch counts must rise; overlaps must be finite in
+   [0, 1] and agree with the same ``Infer`` on the CPU (|d| < 5e-3 with bf16
+   legs, < 1e-3 with fp32 legs); a self-pair's yaw must be 0; a profiled
+   head call at B = 256 holds none of the library rows K3 and K4 replaced
+   (cuDNN's ``convertTensor`` and fprops, the ReLU's ``clamp``, the dense's
+   ``gemv``). Head pairs/s at B = 256, K1's, K3's and K4's ms in that call
+   and leg scans/s are printed as information.
 
 5. lcd: online loop closing at the same full width through
    ``Infer(cfg, shards=1)`` and ``OnlineLoopCloser``: a seeded 400-frame
@@ -201,12 +223,13 @@ Phases, each printing one JSON line:
    two ranks on one card measure the mechanism, not scaling.
 
 In each launch count of the phases model, lcd, train, prep, e2e and dist
-(what their main-path runs launched, counted around them), K3 is launched
-exactly as often as K1, once a head call, and at least once.
+(what their main-path runs launched, counted around them), K3 and K4 are
+launched exactly as often as K1, once a head call, and at least once.
 
-Then the ``kernels`` line (K1, K2 and K3; each kernel's launches are the
-sums over those phases' main-path runs, by phase; phase conv2's own calls
-are not counted), the nvidia-smi line, and last the result line.
+Then the ``kernels`` line (K1, K2, K3 and K4; each kernel's launches are
+the sums over those phases' main-path runs, by phase; phases conv2's and
+conv3's own calls are not counted), the nvidia-smi line, and last the
+result line.
 Any failure raises: the exit code is non-zero and no result line is printed.
 It also fails when no CUDA device is visible, and when run outside a
 checkout of the repository.
@@ -254,28 +277,29 @@ def card_peaks(name: str) -> tuple[float, float, float]:
 
 
 def kernel_launches() -> dict:
-    """K1's, K2's and K3's launches so far: the port's ``k1.launches``,
-    ``k2.launches`` and ``k3.launches`` counters
+    """K1's, K2's, K3's and K4's launches so far: the port's ``k1.launches``,
+    ``k2.launches``, ``k3.launches`` and ``k4.launches`` counters
     (``overlapnet_torch.core.profiling``)."""
     from overlapnet_torch.core.profiling import totals
 
     t = totals()
     return {"delta_conv1": t.get("k1.launches", 0), "delta_conv1_bwd": t.get("k2.launches", 0),
-            "c_conv2_relu": t.get("k3.launches", 0)}
+            "c_conv2_relu": t.get("k3.launches", 0), "c_conv3_dense": t.get("k4.launches", 0)}
 
 
 def launches_since(start: dict) -> dict:
-    """K1's, K2's and K3's launches since ``start`` (a ``kernel_launches()``)."""
+    """Each kernel's launches since ``start`` (a ``kernel_launches()``)."""
     return {k: n - start[k] for k, n in kernel_launches().items()}
 
 
-def k3_per_head_call(launches: dict, what: str) -> None:
-    """Every head call on the card launches K1, then K3, once: raises unless
-    ``launches`` (a ``launches_since``) holds some K1 launches and as many
-    of K3."""
-    k1, k3 = launches["delta_conv1"], launches["c_conv2_relu"]
-    if k1 == 0 or k3 != k1:
-        raise RuntimeError(f"{what}: {k3} K3 launches for {k1} K1 launches (head calls)")
+def heads_per_head_call(launches: dict, what: str) -> None:
+    """Every head call on the card launches K1, then K3, then K4, once each:
+    raises unless ``launches`` (a ``launches_since``) holds some K1 launches
+    and as many of K3 and of K4."""
+    k1, k3, k4 = (launches[k] for k in ("delta_conv1", "c_conv2_relu", "c_conv3_dense"))
+    if k1 == 0 or k3 != k1 or k4 != k1:
+        raise RuntimeError(f"{what}: {k3} K3 and {k4} K4 launches for {k1} K1 launches "
+                           "(head calls)")
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -798,6 +822,168 @@ def conv2_forms(torch, name, smi):
     return rows
 
 
+# -- phase conv3 ----------------------------------------------------------------
+
+# K4's forms: (form, B, W', timed). The head's J = W' // 15: 24 at W' = 360, 30
+# at W' = 450 (circular legs), at the head call's 256 pairs, at 32 and at 1,
+# and the ragged chunks n % 256 (3, 17); then the small test model's W' = 90
+# (J = 6, many pairs a tile).
+K4_FORMS = [
+    ("b256_w360", 256, 360, True),
+    ("b32_w360", 32, 360, True),
+    ("b1_w360", 1, 360, True),
+    ("b256_w450", 256, 450, True),
+    ("b32_w450", 32, 450, True),
+    ("b1_w450", 1, 450, True),
+    ("b3_w360", 3, 360, False),
+    ("b17_w360", 17, 360, False),
+    ("b5_w90", 5, 90, False),
+]
+# K4's gates, on each pair's overlap (inputs below: logits over about +-3;
+# tests/test_torch_c_conv3.py holds the same). Against the float64 plain
+# version on x and c_conv3's weight rounded to TF32 to nearest, as K4 rounds
+# them, what is left is K4's fp32 sums: up to 1.6e-6; bfloat16 operands read
+# 6.5e-4 to 2.8e-3 there, truncated TF32 more than 1e-4.
+K4_RNA_LIMIT = 2e-5
+# Against the float64 plain version on the operands as given: TF32 rounding
+# itself reads up to 3.0e-4.
+K4_REL_LIMIT = 5e-4
+# With cuDNN's TF32 off K4 runs 3xTF32, float32 accuracy: up to 4.7e-6
+K4_SPLIT_LIMIT = 2e-5
+
+
+def phase_conv3(torch, name, smi):
+    """K4 (c_conv3 + bias + ReLU + the overlap dense) against its plain
+    version in float64, its bits across calls and batch splits, and its time
+    beside its TF32 bound, the plain version (fp32, TF32 off) and the library
+    calls the head ran before K4 (cuDNN's TF32 conv with its bias, the ReLU,
+    the flatten, the dense and the sigmoid). Leaves cuDNN's TF32 switch as
+    it found it."""
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        return conv3_forms(torch, name, smi)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def conv3_inputs(torch, bsz, j, seed):
+    """K3's output as K3 lays it out, (B, J, J, 128) ReLU'd, viewed as NCHW;
+    c_conv3's glorot-scale weight and a bias; a dense weight whose logits
+    spread over a few units, and its bias (tests/test_torch_c_conv3.py)."""
+    rng = np.random.default_rng(seed)
+    x = np.maximum(rng.normal(size=(bsz, j, j, 128)), 0).astype(np.float32)
+    limit = math.sqrt(6.0 / (9 * 128 + 9 * 256))
+    weight = rng.uniform(-limit, limit, size=(256, 128, 3, 3)).astype(np.float32)
+    bias = (rng.normal(size=(256,)) * 0.1).astype(np.float32)
+    k = (j - 2) * (j - 2) * 256
+    dense_w = (rng.normal(size=(1, k)) * (4.0 / math.sqrt(k))).astype(np.float32)
+    dense_b = np.array([0.1], np.float32)
+    x = torch.from_numpy(x).cuda().permute(0, 3, 1, 2)
+    return [x] + [torch.from_numpy(a).cuda() for a in (weight, bias, dense_w, dense_b)]
+
+
+def rna_tf32(torch, t):
+    """``t`` rounded to TF32 to nearest, ties away from zero (cvt.rna), as
+    float64."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + (1 << 12)) & ~((1 << 13) - 1)).view(torch.float32).double()
+
+
+def conv3_forms(torch, name, smi):
+    from overlapnet_torch.kernels import c_conv3_dense as k4
+
+    # cuDNN's TF32 on, PyTorch's default and the head's: K4's single TF32
+    # product; each form also runs with it off (3xTF32)
+    torch.backends.cudnn.allow_tf32 = True
+    _, peak_tf32, peak_bw = card_peaks(name)
+    rows = {}
+    for form, bsz, w, timed in K4_FORMS:
+        j = w // S
+        args = conv3_inputs(torch, bsz, j, bsz + w)
+        x, wt, bias, dense_w, dense_b = args
+
+        before = kernel_launches()
+        out = k4.c_conv3_dense(*args)
+        again = k4.c_conv3_dense(*args)
+        torch.cuda.synchronize()
+        rose = launches_since(before)["c_conv3_dense"]
+        if rose != 2:
+            raise RuntimeError(f"{form}: k4.launches rose by {rose}, not 2")
+        if tuple(out.shape) != (bsz, 1) or out.dtype != torch.float32:
+            raise RuntimeError(f"{form}: K4 gave {tuple(out.shape)} {out.dtype}, not (B, 1) "
+                               "float32")
+        if not torch.equal(out, again):
+            raise RuntimeError(f"{form}: two calls of K4 gave different bits")
+        exact = [t.double() for t in args]
+        ref = k4.plain_c_conv3_dense(*exact)
+        ref_rna = k4.plain_c_conv3_dense(rna_tf32(torch, x), rna_tf32(torch, wt), *exact[2:])
+        ref_bf16 = k4.plain_c_conv3_dense(x.bfloat16().double(), wt.bfloat16().double(),
+                                          *exact[2:])
+        err = float((out.double() - ref).abs().max())
+        err_rna = float((out.double() - ref_rna).abs().max())
+        bf16_rna = float((ref_bf16 - ref_rna).abs().max())
+        if err > K4_REL_LIMIT or err_rna > K4_RNA_LIMIT:
+            raise RuntimeError(f"{form}: K4 against float64: {err} (limit {K4_REL_LIMIT}), "
+                               f"against TF32-rounded operands {err_rna} (limit {K4_RNA_LIMIT})")
+        if bsz >= 32 and bf16_rna <= K4_RNA_LIMIT:
+            raise RuntimeError(f"{form}: bfloat16 operands read {bf16_rna} against the "
+                               f"TF32-rounded ones: the gate would not tell them apart")
+        row = {"max_abs_err_fp64": err, "max_abs_err_vs_tf32_rna": err_rna,
+               "bf16_control_vs_tf32_rna": bf16_rna,
+               "tf32_rna_vs_fp64": float((ref_rna - ref).abs().max()),
+               "overlap_range": [float(ref.min()), float(ref.max())]}
+        # TF32 off: the 3xTF32 form
+        torch.backends.cudnn.allow_tf32 = False
+        split = k4.c_conv3_dense(*args)
+        if not torch.equal(split, k4.c_conv3_dense(*args)):
+            raise RuntimeError(f"{form}: two calls of K4 (3xTF32) gave different bits")
+        torch.backends.cudnn.allow_tf32 = True
+        row["max_abs_err_fp64_3xtf32"] = float((split.double() - ref).abs().max())
+        if row["max_abs_err_fp64_3xtf32"] > K4_SPLIT_LIMIT:
+            raise RuntimeError(f"{form}: K4 with TF32 off (3xTF32) against float64: "
+                               f"{row['max_abs_err_fp64_3xtf32']} (limit {K4_SPLIT_LIMIT})")
+        del again, exact, ref, ref_rna, ref_bf16, split
+        if form == "b256_w360":
+            # every batch a head call of at most 256 pairs can give, as rows
+            # of one call: the same bits whatever the split
+            for bb in range(1, bsz + 1):
+                if not torch.equal(k4.c_conv3_dense(x[:bb], *args[1:]), out[:bb]):
+                    raise RuntimeError(f"{form}: K4 on the first {bb} pairs differs from the "
+                                       f"same rows of the whole call")
+            row["batches_bit_equal"] = bsz
+        if timed:
+            def library():
+                h = torch.relu(torch.nn.functional.conv2d(x, wt, bias))
+                flat = h.permute(0, 2, 3, 1).reshape(bsz, -1)
+                return torch.sigmoid(torch.nn.functional.linear(flat, dense_w, dense_b))
+
+            row["ms"] = time_ms(torch, lambda: k4.c_conv3_dense(*args), 20)
+            row["device_ms"] = graph_ms(torch, lambda: k4.c_conv3_dense(*args))
+            row["library_ms"] = time_ms(torch, library, 10)
+            row["library_device_ms"] = graph_ms(torch, library)
+            torch.backends.cudnn.allow_tf32 = False
+            row["ms_3xtf32"] = time_ms(torch, lambda: k4.c_conv3_dense(*args), 20)
+            row["device_ms_3xtf32"] = graph_ms(torch, lambda: k4.c_conv3_dense(*args))
+            row["plain_ms"] = time_ms(torch, lambda: k4.plain_c_conv3_dense(*args), 10)
+            torch.backends.cudnn.allow_tf32 = True
+            nbytes = 4 * sum(t.numel() for t in args) + 4 * bsz
+            flops = 2.0 * bsz * (j - 2) * (j - 2) * 256 * 9 * 128
+            t_bytes, t_ops = nbytes / peak_bw * 1e3, flops / peak_tf32 * 1e3
+            row.update({"bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                        "share_of_bound": max(t_bytes, t_ops) / row["device_ms"],
+                        "mbytes": nbytes / 1e6, "gflop": flops / 1e9})
+        rows[form] = row
+        emit({"phase": "conv3", "kernel": k4.NAME, "form": form, "batch": bsz, "w": w, "j": j,
+              **row, "card": smi})
+        del out, args, x
+    return rows
+
+
+# Row names of the library passes a head call ran before K3 and K4
+HEAD_LIBRARY_ROWS = ("convertTensor", "fprop", "gemv", "clamp")
+
+
 def head_breakdown(torch, score, fa, fb) -> dict:
     """Self device time by profiler row over one head call (torch.profiler):
     K1's kernel time and the top rows, in ms, each row tagged CUDA (a
@@ -816,12 +1002,16 @@ def head_breakdown(torch, score, fa, fb) -> dict:
         key=lambda r: -r[2],
     )
     if not rows:
-        return {"k1_ms": None, "k3_ms": None, "convert_tensor_rows": None, "top": None}
+        return {"k1_ms": None, "k3_ms": None, "k4_ms": None, "library_rows": None, "top": None}
     return {
         "k1_ms": sum(ms for k, _, ms in rows if "delta_conv1" in k),
         "k3_ms": sum(ms for k, _, ms in rows if "c_conv2_relu_kernel" in k),
-        # cuDNN's layout pass before c_conv2, which K3 replaced
-        "convert_tensor_rows": [k[:80] for k, _, _ in rows if "convertTensor" in k],
+        "k4_ms": sum(ms for k, _, ms in rows if "c_conv3_dense" in k),
+        # cuDNN's layout pass before c_conv2, which K3 replaced; cuDNN's
+        # fprop of c_conv3, its bias add, the ReLU's clamp and the dense's
+        # gemv, which K4 replaced
+        "library_rows": [k[:80] for k, _, _ in rows
+                         if any(n in k for n in HEAD_LIBRARY_ROWS)],
         "top": [[k[:80], kind, ms] for k, kind, ms in rows[:8]],
     }
 
@@ -873,7 +1063,7 @@ def phase_model(torch, smi):
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         launches = launches_since(k_start)
-        k3_per_head_call(launches, "the serving path")
+        heads_per_head_call(launches, "the serving path")
         pairs = 1 + 64 + 16 + 4
 
         ov = res["overlaps"]
@@ -910,9 +1100,9 @@ def phase_model(torch, smi):
             head_ms = time_ms(torch, lambda: gpu.model.score(fa, fb), 5)
             leg_ms = time_ms(torch, lambda: gpu.model.encode(imgs), 5)
         breakdown = head_breakdown(torch, gpu.model.score, fa, fb)
-        if breakdown["convert_tensor_rows"]:
-            raise RuntimeError(f"a head call still runs cuDNN's layout pass: "
-                               f"{breakdown['convert_tensor_rows']}")
+        if breakdown["library_rows"]:
+            raise RuntimeError(f"a head call still runs a library pass of the overlap head: "
+                               f"{breakdown['library_rows']}")
 
     emit({
         "phase": "model", "config": "OverlapNetConfig() 64x900x4, bf16 legs, W'=360",
@@ -1090,7 +1280,7 @@ def phase_lcd(torch, smi):
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         launches = launches_since(k_start)
-        k3_per_head_call(launches, "the pipelined run")
+        heads_per_head_call(launches, "the pipelined run")
         if launches["delta_conv1"] < scored_frames:
             raise RuntimeError(f"{launches['delta_conv1']} delta_conv1 launches for "
                                f"{scored_frames} scored frames")
@@ -1162,7 +1352,7 @@ def phase_lcd(torch, smi):
         torch.cuda.synchronize()
         wide_s = time.perf_counter() - t0
         wide_launches = launches_since(k_start)
-        k3_per_head_call(wide_launches, "the run without covariances")
+        heads_per_head_call(wide_launches, "the run without covariances")
         wide_launches = wide_launches["delta_conv1"]
         most = max(len(c) for c in wide_candidates)
         if wide_launches <= sum(1 for c in wide_candidates if c):
@@ -1368,7 +1558,8 @@ def phase_train(torch, smi):
         # and per served request; one K2 launch per train step
         train_steps = TRAIN_STEPS + TRAIN_HOST_STEPS + 2
         if launches != {"delta_conv1": train_steps + 1 + 1, "delta_conv1_bwd": train_steps,
-                        "c_conv2_relu": train_steps + 1 + 1}:
+                        "c_conv2_relu": train_steps + 1 + 1,
+                        "c_conv3_dense": train_steps + 1 + 1}:
             raise RuntimeError(f"launches {launches} for {train_steps} train steps, "
                                "1 evaluated batch and 1 served request")
         if saved_step != TRAIN_STEPS + TRAIN_HOST_STEPS or restored.state.step != saved_step + 1:
@@ -1729,7 +1920,8 @@ def phase_prep(torch, smi):
         eval_batches = sum(1 for x in lines if x["phase"] == "validation")
         if steps != PREP_STEPS or launches != {"delta_conv1": steps + eval_batches,
                                                "delta_conv1_bwd": steps,
-                                               "c_conv2_relu": steps + eval_batches}:
+                                               "c_conv2_relu": steps + eval_batches,
+                                               "c_conv3_dense": steps + eval_batches}:
             raise RuntimeError(f"launches {launches} for {steps} train steps and "
                                f"{eval_batches} evaluated batch")
         losses = [x for x in lines if x["phase"] == "train"]
@@ -1917,12 +2109,12 @@ def phase_e2e(torch, smi):
         if (train["delta_conv1"], train["delta_conv1_bwd"]) != (steps + eval_batches, steps):
             raise RuntimeError(f"training launched {train} for {steps} steps and "
                                f"{eval_batches} evaluated batches")
-        k3_per_head_call(train, "run_e2e's training")
+        heads_per_head_call(train, "run_e2e's training")
         lcd = stages["run_lcd"]
         if not 0 < lcd["delta_conv1"] <= E2E_FRAMES or lcd["delta_conv1_bwd"]:
             raise RuntimeError(f"loop closing launched {lcd}")
-        k3_per_head_call(lcd, "run_e2e's loop closing")
-        k3_per_head_call(harness, "run_e2e")
+        heads_per_head_call(lcd, "run_e2e's loop closing")
+        heads_per_head_call(harness, "run_e2e")
 
         # ---- (b) cli evaluate's evaluate() on the run's validation set with
         # its trained_params.npz (network.yml cannot name the harness's
@@ -1934,7 +2126,7 @@ def phase_e2e(torch, smi):
         ev_metrics, ev = cli_evaluate.evaluate(cfg, params, device="cuda")
         evaluate_s = time.perf_counter() - t0
         ev_launches = launches_since(k_start)
-        k3_per_head_call(ev_launches, "cli evaluate")
+        heads_per_head_call(ev_launches, "cli evaluate")
         d_rms = abs(ev_metrics["overlap_rms_error"] - m["trained_overlap_rms_error"])
         if len(ev["pred_overlap"]) != m["train_n_val_pairs"] or d_rms > 1e-3:
             raise RuntimeError(f"cli evaluate: {len(ev['pred_overlap'])} pairs, overlap RMS "
@@ -2168,7 +2360,8 @@ def dist_rank(rank: int, work: str) -> int:
     sharded.run(pipeline_depth=8)
     torch.cuda.synchronize()
     out["lcd_s"] = time.perf_counter() - t0
-    out["lcd_launches"] = {k: launches_since(k_start)[k] for k in ("delta_conv1", "c_conv2_relu")}
+    out["lcd_launches"] = {k: launches_since(k_start)[k] for k in ("delta_conv1", "c_conv2_relu",
+                                                                "c_conv3_dense")}
     arrays["closures"] = np.array([[c.frame, c.match, c.overlap, c.yaw_deg, c.confidence]
                                    for c in sharded.closures], np.float64)
     barrier(mesh)
@@ -2226,7 +2419,7 @@ def phase_dist(torch, smi):
     phase_t0 = time.perf_counter()
     cfg = OverlapNetConfig()
     out_width = leg_output_width(cfg.model)
-    launches = {"delta_conv1": 0, "delta_conv1_bwd": 0, "c_conv2_relu": 0}
+    launches = {"delta_conv1": 0, "delta_conv1_bwd": 0, "c_conv2_relu": 0, "c_conv3_dense": 0}
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "train")
         table = write_train_set(data, cfg.model.input_height, cfg.model.input_width, out_width)
@@ -2268,7 +2461,8 @@ def phase_dist(torch, smi):
                 raise RuntimeError(f"a mesh of one NCCL rank differs from no mesh: {len(differ)} "
                                    f"tensors, up to {d}; logs {log_m[-2:]} vs {log_s[-2:]}")
             if train_launches != {"delta_conv1": 2 * DIST_STEPS, "delta_conv1_bwd": DIST_STEPS,
-                                  "c_conv2_relu": 2 * DIST_STEPS}:
+                                  "c_conv2_relu": 2 * DIST_STEPS,
+                                  "c_conv3_dense": 2 * DIST_STEPS}:
                 raise RuntimeError(f"cli train on the mesh: launches {train_launches} for "
                                    f"{DIST_STEPS} steps and {DIST_STEPS} evaluated batches")
 
@@ -2293,7 +2487,7 @@ def phase_dist(torch, smi):
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             lcd_launches = launches_since(k_start)
-            k3_per_head_call(lcd_launches, "Infer on a mesh of one rank")
+            heads_per_head_call(lcd_launches, "Infer on a mesh of one rank")
             lcd_launches = lcd_launches["delta_conv1"]
             scored = len(on_mesh.closures)
             if lcd_launches < scored or scored < LCD_OUT // 2:
@@ -2320,6 +2514,7 @@ def phase_dist(torch, smi):
             launches[k] += v
         launches["delta_conv1"] += lcd_launches
         launches["c_conv2_relu"] += lcd_launches
+        launches["c_conv3_dense"] += lcd_launches
 
         # ---- (b) two gloo ranks on the one card (kernels built above)
         env = {**os.environ, "OVERLAPNET_COORDINATOR": f"127.0.0.1:{free_port()}",
@@ -2360,13 +2555,14 @@ def phase_dist(torch, smi):
         if not info["params_equal_across_ranks"]:
             failures.append("two ranks' parameters differ after the data-parallel steps")
         want = {"delta_conv1": DIST_STEPS + 1, "delta_conv1_bwd": DIST_STEPS,
-                "c_conv2_relu": DIST_STEPS + 1}
+                "c_conv2_relu": DIST_STEPS + 1, "c_conv3_dense": DIST_STEPS + 1}
         if info["train_launches"] != want:
             failures.append(f"rank {info['rank']}: launches {info['train_launches']}, want {want}")
         lcd = info["lcd_launches"]
-        if lcd["delta_conv1"] < 1 or lcd["c_conv2_relu"] != lcd["delta_conv1"]:
+        if lcd["delta_conv1"] < 1 or not (lcd["c_conv2_relu"] == lcd["c_conv3_dense"]
+                                           == lcd["delta_conv1"]):
             failures.append(f"rank {info['rank']}: {lcd} in the sharded map (K1 at least once, "
-                            "K3 once per K1)")
+                            "K3 and K4 once per K1)")
         for k in launches:
             launches[k] += info["train_launches"][k] + lcd.get(k, 0)
     got, want = r0["train_metrics"][0], r0["ref_train_metrics"][0]
@@ -2438,7 +2634,8 @@ def phase_dist(torch, smi):
     return launches
 
 
-PHASES = ("kernel", "kernel_bwd", "conv2", "model", "lcd", "train", "prep", "e2e", "dist")
+PHASES = ("kernel", "kernel_bwd", "conv2", "conv3", "model", "lcd", "train", "prep", "e2e",
+          "dist")
 
 
 def main(argv: list[str]) -> int:
@@ -2462,6 +2659,7 @@ def main(argv: list[str]) -> int:
         "kernel": lambda: phase_kernel(torch, k1, plain, name, smi),
         "kernel_bwd": lambda: phase_kernel_bwd(torch, k1, plain, name, smi),
         "conv2": lambda: phase_conv2(torch, name, smi),
+        "conv3": lambda: phase_conv3(torch, name, smi),
         "model": lambda: phase_model(torch, smi),
         "lcd": lambda: phase_lcd(torch, smi),
         "train": lambda: phase_train(torch, smi),
@@ -2473,11 +2671,12 @@ def main(argv: list[str]) -> int:
     if only:  # a part of the run, for development: no result line
         print(smi, flush=True)
         return 0
-    fwd, bwd, k3_rows = out["kernel"], out["kernel_bwd"], out["conv2"]
+    fwd, bwd, k3_rows, k4_rows = out["kernel"], out["kernel_bwd"], out["conv2"], out["conv3"]
     main_path = ("model", "lcd", "train", "prep", "e2e", "dist")
     k1_launches = {p: out[p]["delta_conv1"] for p in main_path}
     k2_launches = {p: out[p]["delta_conv1_bwd"] for p in ("train", "prep", "e2e", "dist")}
     k3_launches = {p: out[p]["c_conv2_relu"] for p in main_path}
+    k4_launches = {p: out[p]["c_conv3_dense"] for p in main_path}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "bound_3xtf32_ms", "bound_fp32_simt_ms")
     emit({"kernels": [{
@@ -2518,6 +2717,22 @@ def main(argv: list[str]) -> int:
            for f in ("b256_w360", "b32_w360", "b1_w360")},
         "worst_pair_rel_err_fp64_3xtf32_all_forms": max(
             r["worst_pair_rel_err_fp64_3xtf32"] for r in k3_rows.values()),
+    }, {
+        "name": "c_conv3_dense", "route": "cuda",
+        "source": "overlapnet_torch/csrc/c_conv3_dense.cu",
+        "replaces": "none: the JAX package leaves c_conv3 and the dense to XLA",
+        "launches": sum(k4_launches.values()), "launches_by_phase": k4_launches,
+        "shape": "B=256, W'=360 (the head call's)",
+        **{k: k4_rows["b256_w360"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms", "share_of_bound")},
+        "share_of_bound_is": "bound_ms over device_ms_b256_w360",
+        **{f"{k}_all_forms": max(r[k] for r in k4_rows.values())
+           for k in ("max_abs_err_fp64", "max_abs_err_vs_tf32_rna", "max_abs_err_fp64_3xtf32")},
+        **{f"device_ms_{f}": k4_rows[f]["device_ms"] for f in ("b256_w360", "b32_w360",
+                                                               "b1_w360", "b256_w450")},
+        **{f"library_device_ms_{f}": k4_rows[f]["library_device_ms"]
+           for f in ("b256_w360", "b32_w360", "b1_w360", "b256_w450")},
+        "device_ms_3xtf32_b256_w360": k4_rows["b256_w360"]["device_ms_3xtf32"],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -10,11 +10,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from overlapnet_torch.core.config import ModelConfig
 from overlapnet_torch.core.leg_specs import leg_output_width
 from overlapnet_torch.kernels.c_conv2_relu import c_conv2_relu
+from overlapnet_torch.kernels.c_conv3_dense import c_conv3_dense
 from overlapnet_torch.kernels.delta_conv1 import delta_conv1
 from overlapnet_torch.models.legs import Conv2d, Dense, torch_dtype
 from overlapnet_torch.ops.correlation import circular_correlation
@@ -36,11 +36,14 @@ class DeltaConv1OverlapHead(nn.Module):
     Fused delta + c_conv1 (linear) -> c_conv2 SxS-grid ReLU conv -> c_conv3
     3x3 ReLU conv -> NHWC flatten -> Linear(1) sigmoid ('overlap_output').
 
-    c_conv1 always goes through ``kernels.delta_conv1`` (K1) and c_conv2 with
-    its ReLU through ``kernels.c_conv2_relu`` (K3): the CUDA kernel for a CUDA
-    tensor, its plain PyTorch version for a CPU tensor. K3 reads K1's
-    channels-last output as it lies and hands c_conv3 its result channels
-    last.
+    c_conv1 always goes through ``kernels.delta_conv1`` (K1), c_conv2 with
+    its ReLU through ``kernels.c_conv2_relu`` (K3), and c_conv3 with its
+    ReLU, the flatten, the dense and the sigmoid through
+    ``kernels.c_conv3_dense`` (K4): the CUDA kernel for a CUDA tensor, its
+    plain PyTorch version for a CPU tensor. K3 reads K1's channels-last
+    output as it lies, and K4 K3's. ``c_conv3`` and ``overlap_output`` keep
+    their modules for their parameters (the checkpoint keys); their own
+    forwards are not called.
     ``ModelConfig.delta_head_impl`` is not read: its default 'xla' relied on
     a compiler fusing the abs-diff into the conv, which eager PyTorch lacks.
     """
@@ -64,10 +67,9 @@ class DeltaConv1OverlapHead(nn.Module):
         )  # (B, W', J, F) float32
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)  # NCHW
         x = self.c_conv2(x)  # ReLU'd
-        x = F.relu(self.c_conv3(x))
         # The Dense's rows follow an NHWC flatten in the JAX package.
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).float()
-        return torch.sigmoid(self.overlap_output(x))  # (B, 1)
+        return c_conv3_dense(x, self.c_conv3.weight, self.c_conv3.bias,
+                             self.overlap_output.weight, self.overlap_output.bias)  # (B, 1)
 
 
 class CorrelationHead(nn.Module):

@@ -85,7 +85,8 @@ assert len(names) >= 30, names
 for new in ("lcd.gating", "lcd.online", "geometry.kitti", "cli.lcd",
             "train.losses", "train.schedule", "train.trainer", "train.evaluate",
             "train.checkpoint", "train.import_keras", "core.metrics", "data.gt_files",
-            "data.dataset", "cli.train", "kernels.delta_conv1", "kernels.c_conv2_relu", "sim.world",
+            "data.dataset", "cli.train", "kernels.delta_conv1", "kernels.c_conv2_relu",
+            "kernels.c_conv3_dense", "sim.world",
             "geometry.projection", "geometry.overlap", "geometry.gen_data",
             "geometry.rotations", "data.native", "data.pack", "data.balancing",
             "cli.gen_data", "cli.gen_gt", "cli.pack", "backend", "backend.ate",
